@@ -1,0 +1,545 @@
+"""Model/State containers: structure-of-arrays articulated-body description.
+
+Counterpart of diffdart_tpu/dynamics/model.py. A `Model` is a frozen
+dataclass: static topology as Python tuples, physical parameters as torch
+tensors on one device in one floating dtype. Field names, shapes and the
+builder's conventions are those of the JAX package, so a model built by
+either package carries the same numbers (`model_to_numpy` /
+`model_from_numpy` move the fields across).
+
+Conventions: body 0..nbody-1 in topological order (parent[i] < i); the world
+is parent -1. Each body is connected to its parent by exactly one joint; the
+child body frame coincides with the joint's successor frame.
+
+Not yet supported here: CONVEX geoms (their hull comes from io/mesh.py,
+which is not ported; `add_geom` raises NotImplementedError) and the
+post-build bilateral constraints `add_ball_constraint`,
+`add_weld_constraint` and `add_mimic_constraint` (they need forward
+kinematics of the vmap stack). `ModelBuilder.add_mimic` is kept, since it
+only records topology.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+
+class JointType:
+    """Static joint-type ids (the same integers as the JAX package)."""
+
+    WELD = 0
+    REVOLUTE = 1
+    PRISMATIC = 2
+    SCREW = 3
+    UNIVERSAL = 4
+    BALL = 5
+    EULER = 6
+    TRANSLATIONAL = 7
+    TRANSLATIONAL2D = 8
+    PLANAR = 9
+    FREE = 10
+
+    # (nq, nv) per type
+    DOF = {
+        WELD: (0, 0),
+        REVOLUTE: (1, 1),
+        PRISMATIC: (1, 1),
+        SCREW: (1, 1),
+        UNIVERSAL: (2, 2),
+        BALL: (4, 3),
+        EULER: (3, 3),
+        TRANSLATIONAL: (3, 3),
+        TRANSLATIONAL2D: (2, 2),
+        PLANAR: (3, 3),
+        FREE: (7, 6),
+    }
+
+
+class GeomType:
+    """Collision/visual geometry primitives (the same integers as the JAX
+    package)."""
+
+    SPHERE = 0
+    BOX = 1
+    CAPSULE = 2
+    PLANE = 3  # static half-space: normal z in geom frame, passes through origin
+    CYLINDER = 4
+    ELLIPSOID = 5
+    CONVEX = 6
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device with no GPU present raises
+    instead of silently falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    # ---- static topology ----
+    parent: tuple  # (nbody,) parent body, -1 = world
+    jtype: tuple  # (nbody,) JointType per body
+    q_off: tuple  # (nbody,) start of body's q slice
+    v_off: tuple  # (nbody,) start of body's v slice
+    nq: int
+    nv: int
+    geom_body: tuple  # (ngeom,) owning body (-1 = world)
+    geom_type: tuple  # (ngeom,) GeomType
+    col_pairs: tuple  # ((g1, g2), ...)
+    geom_hull: tuple = ()
+    hull_vcounts: tuple = ()
+    hull_fcounts: tuple = ()
+
+    # ---- parameters (tensors, one dtype, one device) ----
+    X_rot: torch.Tensor = None  # (nbody, 3, 3) parent frame -> joint frame
+    X_pos: torch.Tensor = None  # (nbody, 3)
+    axis: torch.Tensor = None  # (nbody, 3) primary joint axis (child frame)
+    axis2: torch.Tensor = None  # (nbody, 3) secondary axis (universal/planar/2d)
+    screw_pitch: torch.Tensor = None  # (nbody,)
+    mass: torch.Tensor = None  # (nbody,)
+    com: torch.Tensor = None  # (nbody, 3) COM in body frame
+    inertia: torch.Tensor = None  # (nbody, 3, 3) rotational inertia about COM
+    damping: torch.Tensor = None  # (nv,)
+    armature: torch.Tensor = None  # (nv,)
+    servo_target: torch.Tensor = None  # (nv,) commanded velocity of servo rows
+    force_limit: torch.Tensor = None  # (nv,) |force| limit of servo rows
+    joint_friction: torch.Tensor = None  # (nv,) dry joint friction force
+    spring_stiff: torch.Tensor = None  # (nv,)
+    q_rest: torch.Tensor = None  # (nv,)
+    q_lo: torch.Tensor = None  # (nv,)
+    q_hi: torch.Tensor = None  # (nv,)
+    gravity: torch.Tensor = None  # (3,)
+    dt: torch.Tensor = None  # ()
+    geom_size: torch.Tensor = None  # (ngeom, 3)
+    geom_rot: torch.Tensor = None  # (ngeom, 3, 3) geom frame in body frame
+    geom_pos: torch.Tensor = None  # (ngeom, 3)
+    geom_friction: torch.Tensor = None  # (ngeom,)
+    geom_restitution: torch.Tensor = None  # (ngeom,)
+    hull_verts: torch.Tensor = None  # (nhull, HV, 3)
+    hull_face_n: torch.Tensor = None  # (nhull, HF, 3)
+    hull_face_b: torch.Tensor = None  # (nhull, HF)
+
+    # ---- contact solver configuration (static) ----
+    contact_iters: int = 4
+    contact_solver: str = "lowrank"
+    contact_budget: int = 0
+    pair_budget: int = 0
+    lcp_polish: bool = True
+    lcp_pivot_iters: int = 16
+    contact_cfm: float = 1e-6
+    lcp_dtype: str = "state"
+    baumgarte_erp: float = 0.2
+    limit_iters_extra: int = 0
+    enable_joint_limits: bool = True
+    has_joint_limits: bool = False
+    limited_dofs: tuple = ()
+    has_springs: bool = False
+    servo_dofs: tuple = ()
+    friction_dofs: tuple = ()
+    ball_pairs: tuple = ()
+    weld_pairs: tuple = ()
+    ball_anchor_a: torch.Tensor = None  # (nball, 3)
+    ball_anchor_b: torch.Tensor = None
+    weld_anchor_a: torch.Tensor = None  # (nweld, 3)
+    weld_anchor_b: torch.Tensor = None
+    weld_rel_rot: torch.Tensor = None  # (nweld, 3, 3)
+    mimic_pairs: tuple = ()  # ((dof, src), ...)
+    mimic_mult: torch.Tensor = None  # (nmimic,)
+    mimic_offset: torch.Tensor = None
+
+    def replace(self, **changes) -> "Model":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def nbody(self) -> int:
+        return len(self.parent)
+
+    @property
+    def ngeom(self) -> int:
+        return len(self.geom_body)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.mass.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.mass.device
+
+    def body_nq(self, i: int) -> int:
+        return JointType.DOF[self.jtype[i]][0]
+
+    def body_nv(self, i: int) -> int:
+        return JointType.DOF[self.jtype[i]][1]
+
+    @property
+    def dof_body(self) -> tuple:
+        """(nv,) owning body index per velocity dof."""
+        out = []
+        for i in range(self.nbody):
+            out += [i] * self.body_nv(i)
+        return tuple(out)
+
+    @property
+    def ancestor_mask(self) -> np.ndarray:
+        """(nbody, nv) float mask: mask[b, j] = 1 iff dof j is on the kinematic
+        path from the world to body b."""
+        mask = np.zeros((self.nbody, self.nv), dtype=np.float64)
+        for b in range(self.nbody):
+            a = b
+            while a >= 0:
+                lo, n = self.v_off[a], self.body_nv(a)
+                mask[b, lo : lo + n] = 1.0
+                a = self.parent[a]
+        return mask
+
+    def neutral_q(self, dtype=None) -> torch.Tensor:
+        q = np.zeros(self.nq)
+        for i in range(self.nbody):
+            if self.jtype[i] in (JointType.BALL, JointType.FREE):
+                q[self.q_off[i]] = 1.0  # quaternion w
+        return torch.as_tensor(q, dtype=dtype or self.dtype, device=self.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class State:
+    """Simulation state: q (nq,) or (B, nq), v (nv,) or (B, nv), time t."""
+
+    q: torch.Tensor
+    v: torch.Tensor
+    t: torch.Tensor = None
+
+
+def make_state(model: Model, q=None, v=None, dtype=None) -> State:
+    if dtype is None:
+        dtype = model.dtype if q is None or not torch.is_tensor(q) else q.dtype
+    dev = model.device
+    if q is None:
+        q = model.neutral_q(dtype)
+    if v is None:
+        v = torch.zeros(model.nv, dtype=dtype, device=dev)
+    return State(
+        q=torch.as_tensor(q, dtype=dtype, device=dev),
+        v=torch.as_tensor(v, dtype=dtype, device=dev),
+        t=torch.zeros((), dtype=dtype, device=dev),
+    )
+
+
+_ARRAY_FIELDS = tuple(
+    f.name for f in dataclasses.fields(Model)
+    if f.type in ("torch.Tensor", torch.Tensor)
+)
+
+
+def model_to_numpy(model: Model) -> dict:
+    """Every field of `model`: tensors as float64 numpy arrays, static fields
+    as they are."""
+    out = {}
+    for f in dataclasses.fields(Model):
+        x = getattr(model, f.name)
+        if f.name in _ARRAY_FIELDS and x is not None:
+            x = x.detach().cpu().numpy().astype(np.float64)
+        out[f.name] = x
+    return out
+
+
+def model_from_numpy(fields: dict, device="cuda", dtype=torch.float32) -> Model:
+    """Build a Model from a field dict (numpy arrays and static values, e.g.
+    `model_to_numpy` output or the fields of a JAX-package Model). Unknown
+    keys raise; missing optional fields take their defaults."""
+    dev = resolve_device(device)
+    names = {f.name for f in dataclasses.fields(Model)}
+    extra = set(fields) - names
+    if extra:
+        raise ValueError(f"model_from_numpy: unknown fields {sorted(extra)}")
+    kw = {}
+    for name, x in fields.items():
+        if name in _ARRAY_FIELDS:
+            kw[name] = None if x is None else torch.as_tensor(
+                np.array(x, np.float64), dtype=dtype, device=dev)
+        elif isinstance(x, (list, np.ndarray)):
+            kw[name] = _to_tuple(x)
+        else:
+            kw[name] = x
+    return Model(**kw)
+
+
+def _to_tuple(x):
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return tuple(_to_tuple(y) for y in x)
+    return x.item() if isinstance(x, np.generic) else x
+
+
+# ---------------------------------------------------------------------------
+# Builder
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Body:
+    parent: int
+    jtype: int
+    X_rot: Any
+    X_pos: Any
+    axis: Any
+    axis2: Any
+    screw_pitch: float
+    mass: float
+    com: Any
+    inertia: Any
+    damping: float
+    armature: float
+    spring_stiff: float
+    q_rest: float
+    q_lo: float
+    q_hi: float
+    name: str
+
+
+@dataclasses.dataclass
+class _Geom:
+    body: int
+    gtype: int
+    size: Any
+    rot: Any
+    pos: Any
+    friction: float
+    restitution: float
+
+
+class ModelBuilder:
+    """Programmatic model construction, body by body."""
+
+    def __init__(self, gravity=(0.0, 0.0, -9.81), dt=1e-3, hull_max_verts: int = 32):
+        self.bodies: list[_Body] = []
+        self.geoms: list[_Geom] = []
+        self.gravity = gravity
+        self.dt = dt
+        self.hull_max_verts = hull_max_verts
+        self._names: dict[str, int] = {}
+        self.collision_filter: set = set()
+        self.mimics: list = []  # (child_body, src_body, mult, offset)
+
+    def add_body(
+        self,
+        parent: int = -1,
+        jtype: int = JointType.REVOLUTE,
+        X_rot=None,
+        X_pos=(0.0, 0.0, 0.0),
+        axis=(0.0, 0.0, 1.0),
+        axis2=(0.0, 1.0, 0.0),
+        screw_pitch: float = 0.0,
+        mass: float = 1.0,
+        com=(0.0, 0.0, 0.0),
+        inertia=None,
+        damping: float = 0.0,
+        armature: float = 0.0,
+        spring_stiff: float = 0.0,
+        q_rest: float = 0.0,
+        q_lo: float = -1e9,
+        q_hi: float = 1e9,
+        name: str | None = None,
+    ) -> int:
+        idx = len(self.bodies)
+        if parent >= idx:
+            raise ValueError("bodies must be added in topological order (parent < child)")
+        if inertia is None:
+            inertia = np.eye(3) * 0.1 * mass
+        if X_rot is None:
+            X_rot = np.eye(3)
+        name = name or f"body{idx}"
+        self.bodies.append(
+            _Body(parent, jtype, np.asarray(X_rot, np.float64), np.asarray(X_pos, np.float64),
+                  np.asarray(axis, np.float64), np.asarray(axis2, np.float64), screw_pitch,
+                  mass, np.asarray(com, np.float64), np.asarray(inertia, np.float64),
+                  damping, armature, spring_stiff, q_rest, q_lo, q_hi, name)
+        )
+        self._names[name] = idx
+        return idx
+
+    def add_mimic(self, child_body: int, src_body: int,
+                  multiplier: float = 1.0, offset: float = 0.0) -> None:
+        """q_child = multiplier * q_src + offset (URDF <mimic>); both joints
+        must be single-dof, checked at finalize."""
+        self.mimics.append((int(child_body), int(src_body),
+                            float(multiplier), float(offset)))
+
+    def add_geom(
+        self,
+        body: int,
+        gtype: int,
+        size=(0.1, 0.0, 0.0),
+        rot=None,
+        pos=(0.0, 0.0, 0.0),
+        friction: float = 0.8,
+        restitution: float = 0.0,
+        verts=None,
+    ) -> int:
+        if gtype == GeomType.CONVEX:
+            raise NotImplementedError(
+                "CONVEX geoms need the mesh hull of io/mesh.py, which the "
+                "torch port does not have yet")
+        if rot is None:
+            rot = np.eye(3)
+        self.geoms.append(
+            _Geom(body, gtype, np.asarray(size, np.float64), np.asarray(rot, np.float64),
+                  np.asarray(pos, np.float64), friction, restitution)
+        )
+        return len(self.geoms) - 1
+
+    def exclude_pair(self, g1: int, g2: int):
+        self.collision_filter.add((min(g1, g2), max(g1, g2)))
+
+    def body_index(self, name: str) -> int:
+        return self._names[name]
+
+    def _default_pairs(self) -> tuple:
+        """All geom pairs except same-body, parent-child adjacent bodies,
+        world-world, plane-plane and explicitly filtered pairs."""
+        pairs = []
+        for a in range(len(self.geoms)):
+            for b in range(a + 1, len(self.geoms)):
+                ba, bb = self.geoms[a].body, self.geoms[b].body
+                if ba == bb:
+                    continue
+                if ba >= 0 and bb >= 0 and (self.bodies[ba].parent == bb or self.bodies[bb].parent == ba):
+                    continue
+                if ba < 0 and bb < 0:
+                    continue
+                if (a, b) in self.collision_filter:
+                    continue
+                ta, tb = self.geoms[a].gtype, self.geoms[b].gtype
+                if ta == GeomType.PLANE and tb == GeomType.PLANE:
+                    continue
+                pairs.append((a, b))
+        return tuple(pairs)
+
+    def finalize(self, dtype=torch.float32, device="cuda") -> Model:
+        dev = resolve_device(device)
+        nb = len(self.bodies)
+        q_off, v_off = [], []
+        nq = nv = 0
+        for b in self.bodies:
+            q_off.append(nq)
+            v_off.append(nv)
+            dq, dv = JointType.DOF[b.jtype]
+            nq += dq
+            nv += dv
+        damping = np.zeros(nv)
+        armature = np.zeros(nv)
+        spring = np.zeros(nv)
+        q_rest = np.zeros(nv)
+        q_lo = np.full(nv, -1e9)
+        q_hi = np.full(nv, 1e9)
+        for i, b in enumerate(self.bodies):
+            lo, n = v_off[i], JointType.DOF[b.jtype][1]
+            damping[lo : lo + n] = b.damping
+            armature[lo : lo + n] = b.armature
+            spring[lo : lo + n] = b.spring_stiff
+            q_rest[lo : lo + n] = b.q_rest
+            q_lo[lo : lo + n] = b.q_lo
+            q_hi[lo : lo + n] = b.q_hi
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=dev)
+
+        def stack(attr, default_shape):
+            if nb == 0:
+                return t(np.zeros((0,) + default_shape))
+            return t(np.stack([getattr(b, attr) for b in self.bodies]))
+
+        ngeom = len(self.geoms)
+        mimic_pairs = []
+        for (cb, sb, mult, off) in self.mimics:
+            for bi, role in ((cb, "mimicking"), (sb, "mimicked")):
+                if JointType.DOF[self.bodies[bi].jtype][1] != 1:
+                    raise ValueError(
+                        f"mimic: {role} joint on body {bi} must be single-dof")
+            mimic_pairs.append((v_off[cb], v_off[sb]))
+
+        return Model(
+            parent=tuple(b.parent for b in self.bodies),
+            jtype=tuple(b.jtype for b in self.bodies),
+            q_off=tuple(q_off),
+            v_off=tuple(v_off),
+            nq=nq,
+            nv=nv,
+            geom_body=tuple(g.body for g in self.geoms),
+            geom_type=tuple(g.gtype for g in self.geoms),
+            col_pairs=self._default_pairs(),
+            X_rot=stack("X_rot", (3, 3)),
+            X_pos=stack("X_pos", (3,)),
+            axis=stack("axis", (3,)),
+            axis2=stack("axis2", (3,)),
+            screw_pitch=t([b.screw_pitch for b in self.bodies]),
+            mass=t([b.mass for b in self.bodies]),
+            com=stack("com", (3,)),
+            inertia=stack("inertia", (3, 3)),
+            damping=t(damping),
+            armature=t(armature),
+            spring_stiff=t(spring),
+            q_rest=t(q_rest),
+            q_lo=t(q_lo),
+            q_hi=t(q_hi),
+            gravity=t(self.gravity),
+            dt=t(self.dt),
+            geom_size=t(np.stack([g.size for g in self.geoms]) if ngeom else np.zeros((0, 3))),
+            geom_rot=t(np.stack([g.rot for g in self.geoms]) if ngeom else np.zeros((0, 3, 3))),
+            geom_pos=t(np.stack([g.pos for g in self.geoms]) if ngeom else np.zeros((0, 3))),
+            geom_friction=t([g.friction for g in self.geoms]),
+            geom_restitution=t([g.restitution for g in self.geoms]),
+            geom_hull=tuple(-1 for _ in self.geoms),
+            hull_vcounts=(),
+            hull_fcounts=(),
+            hull_verts=t(np.zeros((0, 0, 3))),
+            hull_face_n=t(np.zeros((0, 0, 3))),
+            hull_face_b=t(np.zeros((0, 0))),
+            has_joint_limits=bool(np.any(q_lo > -1e8) or np.any(q_hi < 1e8)),
+            limited_dofs=tuple(int(i) for i in np.nonzero((q_lo > -1e8) | (q_hi < 1e8))[0]),
+            has_springs=bool(np.any(spring != 0.0)),
+            servo_target=t(np.zeros(nv)),
+            force_limit=t(np.full((nv,), 1e9)),
+            joint_friction=t(np.zeros(nv)),
+            servo_dofs=(),
+            friction_dofs=(),
+            ball_anchor_a=t(np.zeros((0, 3))),
+            ball_anchor_b=t(np.zeros((0, 3))),
+            weld_anchor_a=t(np.zeros((0, 3))),
+            weld_anchor_b=t(np.zeros((0, 3))),
+            weld_rel_rot=t(np.zeros((0, 3, 3))),
+            mimic_pairs=tuple(mimic_pairs),
+            mimic_mult=t([m for (_, _, m, _) in self.mimics]),
+            mimic_offset=t([o for (_, _, _, o) in self.mimics]),
+        )
+
+
+def enable_servo(model: Model, dofs, force_limit, target=None) -> Model:
+    """Velocity servos on `dofs`: the LCP drives each dof's velocity to
+    `servo_target` subject to |force| <= force_limit."""
+    fl = model.force_limit.clone()
+    for d in dofs:
+        fl[d] = force_limit
+    m = model.replace(force_limit=fl, servo_dofs=tuple(sorted(set(model.servo_dofs) | set(dofs))))
+    if target is not None:
+        m = m.replace(servo_target=torch.as_tensor(
+            np.asarray(target, np.float64), dtype=model.dtype, device=model.device))
+    return m
+
+
+def enable_joint_friction(model: Model, dofs, friction) -> Model:
+    """Dry Coulomb joint friction: a bounded impulse drives each dof's
+    velocity toward zero."""
+    jf = model.joint_friction.clone()
+    for d in dofs:
+        jf[d] = friction
+    return model.replace(
+        joint_friction=jf,
+        friction_dofs=tuple(sorted(set(model.friction_dofs) | set(dofs))),
+    )

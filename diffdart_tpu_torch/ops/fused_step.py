@@ -1,0 +1,277 @@
+"""Fused timestep on the structure-of-arrays layout: the Hopper kernel
+(ops/csrc/fused_step.cu) on CUDA tensors, its plain PyTorch version
+(sim/tilestep.py) on CPU tensors.
+
+Counterpart of diffdart_tpu/ops/pallas_step.py. The TPU lays envs out as
+(nq|nv, 8, L) lane tiles and needs B % 1024 == 0; here a state is (nq, B) /
+(nv, B) with one env per column, any B, and `to_soa` / `from_soa` replace
+`to_tiles` / `from_tiles`.
+
+Not yet supported: the backward kernel (port of `_bwd_kernel`, next slice).
+On CUDA, a call with grad enabled and an input that requires grad raises
+NotImplementedError; on the CPU autograd runs through the plain version.
+The kernel covers the plain version's whole subset (REVOLUTE / PRISMATIC /
+PLANAR / WELD / FREE / BALL joints; capsule / sphere / box vs fixed-plane
+contacts; joint-limit, servo and joint-friction rows) within the size caps
+below; a CUDA call for a model over a cap raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from diffdart_tpu_torch.dynamics.model import JointType, Model, State
+from diffdart_tpu_torch.ops import _build
+from diffdart_tpu_torch.sim.tilestep import (
+    SLOTS,
+    _np,
+    _tangent_basis_const,
+    build_tile_step,
+    check_supported,
+    contact_plan,
+    dof_qidx,
+    lcp_rows,
+)
+
+# size caps compiled into the kernel (fused_step.cu); checked at load time
+MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D = 16, 16, 16, 16, 32, 16, 64
+
+# descriptor layouts, in the field order of DescI / DescF<T>
+_I_LAYOUT = [
+    ("hdr", 11), ("parent", MAX_NB), ("jtype", MAX_NB), ("q_off", MAX_NB), ("v_off", MAX_NB),
+    ("anc", MAX_NB * MAX_NV), ("dof_body", MAX_NV), ("dof_qidx", MAX_NV),
+    ("pair_body", MAX_PAIRS), ("pair_type", MAX_PAIRS), ("lim_dof", MAX_LIM),
+    ("servo_dof", MAX_NV), ("fric_dof", MAX_NV),
+]
+_F_LAYOUT = [
+    ("X_rot", MAX_NB * 9), ("X_pos", MAX_NB * 3), ("axis", MAX_NB * 3), ("axis2", MAX_NB * 3),
+    ("rot_ax", MAX_NB * 3), ("rot_K", MAX_NB * 9), ("rot_K2", MAX_NB * 9),
+    ("mass", MAX_NB), ("com", MAX_NB * 3), ("inertia", MAX_NB * 9),
+    ("damping", MAX_NV), ("m_extra", MAX_NV), ("spring", MAX_NV), ("q_rest", MAX_NV),
+    ("lim_lo", MAX_LIM), ("lim_hi", MAX_LIM), ("neg_grav", 3), ("scalars", 3),
+    ("pair_rot", MAX_PAIRS * 9), ("pair_pos", MAX_PAIRS * 3), ("pair_size", MAX_PAIRS * 3),
+    ("pair_n", MAX_PAIRS * 3), ("pair_p", MAX_PAIRS * 3), ("pair_t1", MAX_PAIRS * 3),
+    ("pair_t2", MAX_PAIRS * 3), ("pair_mu", MAX_PAIRS), ("pair_rest", MAX_PAIRS),
+    ("servo_tgt", MAX_NV), ("box_c", 2 * MAX_NV),
+]
+
+
+def _flat(layout, fields, dtype):
+    parts = []
+    for name, n in layout:
+        a = np.zeros(n, dtype)
+        src = np.asarray(fields.get(name, ()), dtype).ravel()
+        a[: src.size] = src
+        parts.append(a)
+    return np.concatenate(parts)
+
+
+def kernel_unsupported_reason(model: Model) -> str | None:
+    """Why the CUDA kernel cannot run `model` (None if it can). Models
+    outside the plain version's subset raise TileStepUnsupported from
+    build_tile_step first."""
+    plan = contact_plan(model)
+    if any(p["body"] < 0 for p in plan):
+        return "contact pairs on a static (world) geom are not supported"
+    nc = sum(SLOTS[p["gtype"]] for p in plan)
+    nlim = len(model.limited_dofs) if model.enable_joint_limits else 0
+    caps = [("bodies", model.nbody, MAX_NB), ("nq", model.nq, MAX_NQ), ("nv", model.nv, MAX_NV),
+            ("contact pairs", len(plan), MAX_PAIRS), ("contact slots", nc, MAX_NC),
+            ("limited dofs", nlim, MAX_LIM), ("LCP rows", lcp_rows(model, nc), MAX_D)]
+    for what, n, cap in caps:
+        if n > cap:
+            return f"{what} = {n} exceeds the kernel's cap of {cap}"
+    return None
+
+
+def pack_descriptor(model: Model):
+    """The kernel's model descriptor: (int32 array in DescI order, float64
+    array in DescF order; cast to the state dtype on upload). Derived
+    constants are computed in float64, as the plain version folds them.
+    Raises NotImplementedError for models outside the kernel's subset."""
+    check_supported(model)
+    reason = kernel_unsupported_reason(model)
+    if reason:
+        raise NotImplementedError(f"fused_step kernel: {reason}")
+    nb, nv = model.nbody, model.nv
+    plan = contact_plan(model)
+    nc = sum(SLOTS[p["gtype"]] for p in plan)
+    lim = [int(d) for d in model.limited_dofs] if model.enable_joint_limits else []
+    D = lcp_rows(model, nc)
+    axis, axis2 = _np(model.axis), _np(model.axis2)
+    rot_ax = np.zeros((nb, 3))
+    for i, j in enumerate(model.jtype):
+        if j == JointType.REVOLUTE:
+            rot_ax[i] = axis[i]
+        elif j == JointType.PLANAR:
+            rot_ax[i] = np.cross(axis[i], axis2[i])
+    rot_K = np.stack([np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) for a in rot_ax])
+    rot_K2 = np.stack([np.outer(a, a) - np.eye(3) for a in rot_ax])
+    dt = float(model.dt)
+    damping, armature, spring = _np(model.damping), _np(model.armature), _np(model.spring_stiff)
+    q_lo, q_hi = _np(model.q_lo), _np(model.q_hi)
+    qidx = dof_qidx(model)
+    anc = np.zeros((MAX_NB, MAX_NV))
+    anc[:nb, :nv] = model.ancestor_mask
+    servo, fric = [int(d) for d in model.servo_dofs], [int(d) for d in model.friction_dofs]
+    ints = dict(
+        hdr=[nb, model.nq, nv, len(plan), nc, len(lim), len(servo), len(fric), D,
+             int(model.contact_iters), 2 if model.lcp_polish else 0],
+        parent=model.parent, jtype=model.jtype, q_off=model.q_off, v_off=model.v_off,
+        anc=anc, dof_body=model.dof_body,
+        dof_qidx=[-1 if x is None else x for x in qidx],
+        pair_body=[p["body"] for p in plan], pair_type=[p["gtype"] for p in plan],
+        lim_dof=lim, servo_dof=servo, fric_dof=fric,
+    )
+    tangents = [_tangent_basis_const(p["n"]) for p in plan]
+    floats = dict(
+        X_rot=_np(model.X_rot), X_pos=_np(model.X_pos), axis=axis, axis2=axis2,
+        rot_ax=rot_ax, rot_K=rot_K, rot_K2=rot_K2,
+        mass=_np(model.mass), com=_np(model.com), inertia=_np(model.inertia),
+        damping=damping, m_extra=armature + dt * damping + dt * dt * spring,
+        spring=spring, q_rest=_np(model.q_rest),
+        lim_lo=q_lo[lim], lim_hi=q_hi[lim], neg_grav=-_np(model.gravity),
+        scalars=[dt, float(model.contact_cfm), float(model.baumgarte_erp) / dt],
+        pair_rot=[p["grot"] for p in plan], pair_pos=[p["gpos"] for p in plan],
+        pair_size=[p["size"] for p in plan], pair_n=[p["n"] for p in plan],
+        pair_p=[p["p_pl"] for p in plan], pair_t1=[t[0] for t in tangents],
+        pair_t2=[t[1] for t in tangents], pair_mu=[p["friction"] for p in plan],
+        pair_rest=[p["restitution"] for p in plan],
+        servo_tgt=_np(model.servo_target)[servo],
+        box_c=np.concatenate([_np(model.force_limit)[servo] * dt, _np(model.joint_friction)[fric] * dt]),
+    )
+    return _flat(_I_LAYOUT, ints, np.int32), _flat(_F_LAYOUT, floats, np.float64)
+
+
+def _load(kind: str) -> ctypes.CDLL:
+    lib = _build.build(kind)
+    want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
+            MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D]
+    got = _build.layout(lib)
+    if got != want:
+        raise RuntimeError(f"fused_step descriptor layout mismatch: kernel {got}, packer {want}")
+    return lib
+
+
+class _FusedStepKernel:
+    """Wrapper of the CUDA kernel. `launches` counts kernel launches, and
+    nothing else."""
+
+    name = "fused_step"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, desc_i, desc_f, q, v, tau):
+        lib = _load("cuda")
+        fn = lib.fused_step_f32 if q.dtype == torch.float32 else lib.fused_step_f64
+        qo = torch.empty_like(q)
+        vo = torch.empty_like(v)
+        B = q.shape[1]
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(desc_i.data_ptr(), desc_f.data_ptr(), q.data_ptr(), v.data_ptr(),
+                     tau.data_ptr(), qo.data_ptr(), vo.data_ptr(), B, stream)
+        if err:
+            raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return qo, vo
+
+
+KERNEL = _FusedStepKernel()
+
+
+class FusedStep:
+    """step(q, v, tau) -> (q', v') on SoA tensors (nq, B), (nv, B), (nv, B)
+    for one model. CPU tensors run the plain version (differentiable); CUDA
+    tensors launch the kernel or raise."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.plain = build_tile_step(model, output="stacked")
+        self._desc = {}  # (device, dtype) -> (DescI tensor, DescF tensor)
+
+    def descriptor(self, device, dtype):
+        key = (str(device), dtype)
+        if key not in self._desc:
+            di, df = pack_descriptor(self.model)
+            self._desc[key] = (torch.as_tensor(di, device=device),
+                               torch.as_tensor(df, dtype=dtype, device=device))
+        return self._desc[key]
+
+    def __call__(self, q, v, tau):
+        m = self.model
+        B = q.shape[-1]
+        for x, k, name in ((q, m.nq, "q"), (v, m.nv, "v"), (tau, m.nv, "tau")):
+            if x.shape != (k, B):
+                raise ValueError(f"fused_step: {name} must be ({k}, B={B}), got {tuple(x.shape)}")
+            if x.dtype not in (torch.float32, torch.float64) or x.dtype != q.dtype:
+                raise TypeError(f"fused_step: {name} must be float32 or float64 like q, got {x.dtype}")
+            if x.device != q.device:
+                raise ValueError(f"fused_step: {name} is on {x.device}, q on {q.device}")
+        if q.device.type == "cpu":
+            return self.plain(q, v, tau)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, v, tau)):
+            raise NotImplementedError(
+                "fused_step: gradients on the GPU need the backward kernel (port of "
+                "_bwd_kernel), which is the next slice; run under torch.no_grad() or on the CPU")
+        if q.device.type != "cuda":
+            raise ValueError(f"fused_step: unsupported device {q.device}")
+        di, df = self.descriptor(q.device, q.dtype)
+        return KERNEL(di, df, q.contiguous(), v.contiguous(), tau.contiguous())
+
+
+def build_fused_step(model: Model) -> FusedStep:
+    """Raises TileStepUnsupported for models outside the fused subset."""
+    return FusedStep(model)
+
+
+def host_kernel_step(model: Model, q, v, tau):
+    """The kernel's per-env code compiled for the host CPU (ops/_build.py,
+    kind='host') on float64 SoA tensors: checks the kernel's arithmetic
+    where there is no GPU. Not on any execution path."""
+    lib = _load("host")
+    di, df = pack_descriptor(model)
+    q, v, tau = (np.ascontiguousarray(x.detach().cpu().numpy(), np.float64) for x in (q, v, tau))
+    qo, vo = np.empty_like(q), np.empty_like(v)
+    ptr = [a.ctypes.data for a in (di, df, q, v, tau, qo, vo)]
+    err = lib.fused_step_f64(*ptr, q.shape[1], None)
+    if err:
+        raise RuntimeError(f"host fused_step failed: {err}")
+    return torch.from_numpy(qo), torch.from_numpy(vo)
+
+
+def to_soa(x):
+    """(B, k) -> (k, B), contiguous."""
+    return x.transpose(-1, -2).contiguous()
+
+
+def from_soa(x):
+    """(k, B) -> (B, k)."""
+    return x.transpose(-1, -2)
+
+
+def make_bench_fns(model: Model):
+    """roll(q_soa, v_soa, taus_soa) -> (qf, vf): the forward rollout of the
+    benchmark over SoA inputs ((nq, B), (nv, B), (T, nv, B)). The gradient
+    closure of the JAX version comes with the backward kernel."""
+    step = build_fused_step(model)
+
+    def roll(q, v, taus):
+        for t in range(taus.shape[0]):
+            q, v = step(q, v, taus[t])
+        return q, v
+
+    return roll
+
+
+def rollout_tiled(model: Model, state: State, taus) -> State:
+    """Rollout on the fused path. state: batched State with (B, nq)/(B, nv)
+    fields; taus: (T, B, nv). Returns the final batched State. On the CPU
+    gradients flow wrt state and taus (model parameters are baked)."""
+    roll = make_bench_fns(model)
+    qf, vf = roll(to_soa(state.q), to_soa(state.v), taus.transpose(1, 2).contiguous())
+    t = state.t + taus.shape[0] * float(model.dt) if state.t is not None else None
+    return State(q=from_soa(qf), v=from_soa(vf), t=t)
