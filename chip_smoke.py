@@ -23,7 +23,37 @@ falls back to the CPU or to the plain version:
   6. reference -- the same rollout in float64 at B = 256 through the kernel
                  and through the plain version: >= 99% of envs within
                  q 1e-6, v 1e-4 at the end of the 50 steps.
-Then one JSON line with the kernel's numbers, the card line, and the
+  7. grad64   -- the VJP kernel, half-cheetah, B = 4096, one step in
+                 float64 with (q, v, tau, gq, gv) from a numpy seed, against
+                 torch.autograd.grad through the plain version: every env
+                 finite, >= 99% of envs within rtol 1e-6 plus atol 1e-8 times
+                 each of dq, dv, dtau's largest magnitude, and the dual run's
+                 primal equal to kernel 1's output.
+  8. grad32   -- the same step in float32 against forward-mode AD of the
+                 plain float32 step (the kernel's own mode, on the same
+                 primal): finite, a median env error of at most 1e-4 and
+                 >= 90% of envs within 1e-2. The loose share is the eps/cfm
+                 amplification of the Woodbury pass (0.12 at float32's eps and
+                 cfm = 1e-6): where two codes round a tangent differently, an
+                 env's error is amplified that far. Plain reverse-mode
+                 autograd in float32 is printed beside it; it cannot be held to
+                 either (forward- and reverse-mode sums run in other orders).
+                 Tolerances and their reasons: diffdart_tpu_torch/ops/vjp_check.py.
+  9. bptt     -- the main path of training: rollout_fast on the half-cheetah,
+                 B = 4096, T = 50, tau = 0.1 N(0,1), float32, with taus that
+                 require grad, the loss of the JAX package's bench.py
+                 (mean(q_T[:, 1]^2) + 1e-4 mean(tau^2)), then backward():
+                 50 launches of each kernel, a finite dtau whose part through
+                 the kernels (dtau less the regulariser's own gradient) is
+                 non-zero on >= 99% of envs; then loss + backward is timed
+                 with CUDA events (fwd+grad env-steps/s).
+ 10. bptt-reference -- float64, B = 256, T = 10: the gradient of
+                 mean(q_T[:, 1]^2) alone (all of it through the kernels)
+                 against the same through the plain version, >= 99% of envs
+                 within rtol 1e-5 plus atol 1e-8 of its largest magnitude (10
+                 contact steps already amplify the rounding of the gradient;
+                 50 amplify it past any tolerance).
+Then one JSON line with the kernels' numbers, the card line, and the
 result line {"ok": true, "device": {...}}.
 """
 import json
@@ -65,6 +95,33 @@ _COUNTED = {
 }
 
 
+def ops_per_env_vjp(model_cpu, q, v, tau):
+    """Elementwise operations of the plain version's VJP per env: its forward
+    with grad enabled (which adds the probe and gradient passes) plus its
+    autograd backward, seen at the aten level by a TorchDispatchMode, counted
+    on the CPU at B = 1."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from diffdart_tpu_torch.sim.tilestep import build_tile_step
+
+    counted = _COUNTED | {"bitwise_not", "masked_fill", "sgn", "pow", "reciprocal"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__.strip("_") in counted:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    step = build_tile_step(model_cpu)
+    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+    with Count():
+        out = step(*xs)
+        torch.autograd.grad(out, xs, [torch.ones_like(o) for o in out])
+    return Count.n
+
+
 def ops_per_env_step(model_cpu, q, v, tau):
     """Elementwise operations the plain version performs per env in one
     forward step (structural zeros folded away, as the work the step needs),
@@ -95,6 +152,7 @@ def main():
     from diffdart_tpu_torch.dynamics.model import State
     from diffdart_tpu_torch.models import cheetah_init_q, half_cheetah
     from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.ops import vjp_check as vc
     from diffdart_tpu_torch.sim.fast import rollout_fast
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,7 +169,7 @@ def main():
     t0 = time.perf_counter()
     lib = fs._load("cuda")
     ptx = [ln.strip() for ln in lib.build_log.splitlines()
-           if "registers" in ln or "spill" in ln or "stack frame" in ln]
+           if "Compiling entry" in ln or "registers" in ln or "spill" in ln or "stack frame" in ln]
     print(f"[build] fused_step.cu: nvcc {lib.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s"
           f" | ptxas: {' / '.join(ptx)}")
 
@@ -181,10 +239,19 @@ def main():
         kernel_ms = cuda_ms(lambda: step32(qs, vs, ts), reps=50)
         plain_ms = cuda_ms(lambda: step32.plain(qs, vs, ts), reps=3)
         roll_ms = cuda_ms(lambda: rollout_fast(m32, state, taus), reps=3)
+
+        def uncached_rollout():
+            fs._STEPS.clear()  # as every call was before the per-model cache
+            rollout_fast(m32, state, taus)
+
+        roll_uncached_ms = cuda_ms(uncached_rollout, reps=3)
     sps = B * T / (roll_ms * 1e-3)
     print(f"[main] timing on {card}: kernel {kernel_ms:.4f} ms/step, rollout {roll_ms:.3f} ms "
           f"= {roll_ms / T:.4f} ms/step = {sps:.6g} env-steps/s forward; "
           f"plain version {plain_ms:.2f} ms/step (context only)")
+    print(f"[main] host set-up, rollout - {T} x kernel: {roll_ms - T * kernel_ms:.3f} ms with the "
+          f"per-model FusedStep cache, {roll_uncached_ms - T * kernel_ms:.3f} ms with the cache "
+          f"cleared before each rollout (rollout {roll_uncached_ms:.3f} ms)")
 
     # ---- 6. reference check: float64 rollout, kernel vs plain version ----
     Br = 256
@@ -202,6 +269,111 @@ def main():
           f"max |dv| {ev_r.max().item():.3e}; {100 * frac:.2f}% of envs within q 1e-6, v 1e-4")
     check(frac >= 0.99, "float64 rollout through the kernel disagrees with the plain version")
 
+    # ---- 7. grad64: VJP kernel vs plain autograd, one float64 step ----
+    rng_g = np.random.RandomState(2)
+    gq_np, gv_np = rng_g.randn(B, m64.nq), rng_g.randn(B, m64.nv)
+    q, v, tau, gq, gv = (soa(x, torch.float64) for x in (q_np, v_np, tau_np, gq_np, gv_np))
+    d64 = fs.VJP_KERNEL(*step64.descriptor(q.device, torch.float64), q, v, tau, gq, gv, primal=True)
+    with torch.no_grad():
+        qk, vk = step64(q, v, tau)
+    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+    want64 = torch.autograd.grad(step64.plain(*xs), xs, (gq, gv))
+    torch.cuda.synchronize()
+    share64, rel64 = vc.envs_within(d64[:3], want64), vc.env_rel_err(d64[:3], want64)
+    finite64 = all(bool(torch.isfinite(x).all()) for x in d64[:3])
+    primal_eq = bool(torch.equal(d64[3], qk) and torch.equal(d64[4], vk))
+    err64 = max((a - b).abs().max().item() for a, b in zip(d64[:3], want64))
+    print(f"[grad64] VJP one step at B={B}: {100 * share64:.2f}% of envs within rtol 1e-6 + "
+          f"atol 1e-8 max|g|; env relative error median {rel64.median().item():.3e}, p99 "
+          f"{rel64.quantile(0.99).item():.3e}, max {rel64.max().item():.3e}; max |d| {err64:.3e}; "
+          f"finite {finite64}; dual primal == kernel 1 output: {primal_eq}")
+    check(finite64, "non-finite float64 VJP")
+    check(primal_eq, "the VJP kernel's primal differs from kernel 1's output")
+    check(share64 >= vc.VJP_SHARE, "float64 VJP kernel disagrees with plain autograd on > 1% of envs")
+
+    # ---- 8. grad32: the same step in float32 against forward-mode AD ----
+    q, v, tau, gq, gv = (soa(x, torch.float32) for x in (q_np, v_np, tau_np, gq_np, gv_np))
+    d32 = fs.VJP_KERNEL(*step32.descriptor(q.device, torch.float32), q, v, tau, gq, gv)
+    fwd32 = vc.forward_mode_vjp(step32.plain, q, v, tau, gq, gv)
+    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+    rev32 = torch.autograd.grad(step32.plain(*xs), xs, (gq, gv))
+    torch.cuda.synchronize()
+    med32, share32, rel32 = vc.f32_stats(d32, fwd32)
+    med_rev, share_rev, _ = vc.f32_stats(rev32, fwd32)
+    finite32 = all(bool(torch.isfinite(x).all()) for x in d32)
+    vjp32_err = max((a - b).abs().max().item() for a, b in zip(d32, fwd32))
+    print(f"[grad32] VJP one step at B={B} against forward-mode AD of the plain float32 step: env "
+          f"relative error median {med32:.3e}, p99 {rel32.quantile(0.99).item():.3e}, "
+          f"{100 * share32:.2f}% of envs within {vc.F32_REL:g}, max |d| {vjp32_err:.3e}; finite "
+          f"{finite32}; plain reverse mode against it (context): median {med_rev:.3e}, "
+          f"{100 * share_rev:.2f}% within {vc.F32_REL:g}")
+    check(finite32, "non-finite float32 VJP")
+    check(vc.f32_ok(med32, share32),
+          f"float32 VJP kernel disagrees with forward-mode AD of the plain version (median > "
+          f"{vc.F32_MEDIAN:g} or < {100 * vc.F32_SHARE:g}% of envs within {vc.F32_REL:g})")
+
+    # ---- 9. bptt, the main path of training: rollout_fast + backward ----
+    def bptt(model, st, taus_in):
+        taus_g = taus_in.clone().requires_grad_(True)
+        fin = rollout_fast(model, st, taus_g)
+        loss = (fin.q[:, 1] ** 2).mean() + 1e-4 * (taus_g**2).mean()
+        loss.backward()
+        return taus_g.grad
+
+    fs.KERNEL.launches = fs.VJP_KERNEL.launches = 0
+    dtaus = bptt(m32, state, taus)
+    torch.cuda.synchronize()
+    launches_fwd, launches_vjp = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    # the regulariser's gradient by itself: exactly what autograd adds to the
+    # part through the kernels, so the difference is that part (0 if the
+    # kernels gave 0)
+    taus_r = taus.clone().requires_grad_(True)
+    (g_reg,) = torch.autograd.grad(1e-4 * (taus_r**2).mean(), taus_r)
+    d_dyn = dtaus - g_reg
+    share_dyn = (d_dyn != 0).any(-1).any(0).double().mean().item()
+    print(f"[bptt] rollout_fast + backward B={B} T={T} f32: {launches_fwd} step and {launches_vjp} "
+          f"VJP launches; |dtau| max {dtaus.abs().max().item():.3e}, finite "
+          f"{bool(torch.isfinite(dtaus).all())}; part through the kernels: |dtau| max "
+          f"{d_dyn.abs().max().item():.3e}, non-zero on {100 * share_dyn:.2f}% of envs "
+          f"(regulariser's |dtau| max {g_reg.abs().max().item():.3e})")
+    check(launches_fwd == T and launches_vjp == T,
+          f"expected {T} step and {T} VJP launches on the BPTT path, got {launches_fwd}, {launches_vjp}")
+    check(bool(torch.isfinite(dtaus).all()) and share_dyn >= 0.99, "bad BPTT gradient")
+    bptt_ms = cuda_ms(lambda: bptt(m32, state, taus), reps=3)
+    sps_grad = B * T / (bptt_ms * 1e-3)
+    qs, vs, ts = fs.to_soa(q_main), torch.zeros(m32.nv, B, device="cuda"), taus[0].T.contiguous()
+    gqs, gvs = torch.ones_like(qs), torch.ones_like(vs)
+    desc32 = step32.descriptor(qs.device, torch.float32)
+    vjp_ms = cuda_ms(lambda: fs.VJP_KERNEL(*desc32, qs, vs, ts, gqs, gvs), reps=10)
+
+    def plain_vjp():
+        xs = [x.clone().requires_grad_(True) for x in (qs, vs, ts)]
+        torch.autograd.grad(step32.plain(*xs), xs, (gqs, gvs))
+
+    plain_vjp_ms = cuda_ms(plain_vjp, reps=1)
+    print(f"[bptt] timing on {card}: VJP kernel {vjp_ms:.4f} ms/step, loss + backward "
+          f"{bptt_ms:.3f} ms = {sps_grad:.6g} fwd+grad env-steps/s; plain VJP (forward with "
+          f"graph + backward) {plain_vjp_ms:.2f} ms/step (context only)")
+
+    # ---- 10. bptt-reference: float64, B = 256, T = 10, kernels vs plain ----
+    Tr = 10
+    taus_k = taus64[:Tr].clone().requires_grad_(True)
+    (rollout_fast(m64, st64, taus_k).q[:, 1] ** 2).mean().backward()
+    dt_ker = taus_k.grad
+    taus_p = taus64[:Tr].clone().requires_grad_(True)
+    qp, vp = fs.to_soa(st64.q), fs.to_soa(st64.v)
+    for t in range(Tr):
+        qp, vp = step64.plain(qp, vp, taus_p[t].T.contiguous())
+    (qp[1] ** 2).mean().backward()
+    dt_pl = taus_p.grad
+    ok_env = ((dt_ker - dt_pl).abs() <= 1e-5 * dt_pl.abs() + 1e-8 * dt_pl.abs().max()).all(0).all(-1)
+    frac_g = ok_env.double().mean().item()
+    print(f"[bptt-reference] f64 B={Br} T={Tr}, d mean(q_T[:, 1]^2) / dtau: max |difference| "
+          f"{(dt_ker - dt_pl).abs().max().item():.3e} of max |dtau| {dt_pl.abs().max().item():.3e}; "
+          f"{100 * frac_g:.2f}% of envs within rtol 1e-5")
+    check(bool(dt_pl.abs().max() > 0), "zero reference gradient")
+    check(frac_g >= 0.99, "float64 BPTT gradient through the kernels disagrees with the plain version")
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -212,6 +384,12 @@ def main():
     bound_ms = 1e3 * max(t_bytes, t_ops)
     print(f"[bound] {ops} ops/env-step x {B} envs, {nbytes} bytes: bytes {1e3 * t_bytes:.3e} ms, "
           f"ops {1e3 * t_ops:.3e} ms")
+    ops_v = ops_per_env_vjp(m_cpu, *one)
+    nbytes_v = (3 * m32.nq + 5 * m32.nv) * 4 * B + di.nbytes + df.size * 4
+    tv_bytes, tv_ops = nbytes_v / HBM_BYTES_PER_S, ops_v * B / F32_OPS_PER_S
+    bound_vjp_ms = 1e3 * max(tv_bytes, tv_ops)
+    print(f"[bound] VJP: {ops_v} ops/env-step x {B} envs, {nbytes_v} bytes: bytes "
+          f"{1e3 * tv_bytes:.3e} ms, ops {1e3 * tv_ops:.3e} ms")
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "route": "cuda",
@@ -223,6 +401,18 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "fused_step_vjp",
+        "route": "cuda",
+        "source": "diffdart_tpu_torch/ops/csrc/fused_step.cu",
+        "replaces": "diffdart_tpu/ops/pallas_step.py:60",
+        "launches": launches_vjp,
+        "max_abs_err": vjp32_err,
+        "ms": vjp_ms,
+        "plain_ms": plain_vjp_ms,
+        "bound_ms": bound_vjp_ms,
+        "bound_by": "operations" if tv_ops >= tv_bytes else "bytes",
         "library_ms": None,
     }]}))
     print(card)

@@ -1,5 +1,5 @@
-"""Builds ops/csrc/fused_step.cu into a shared library with a plain C
-interface and loads it with ctypes.
+"""Builds ops/csrc/fused_step.cu (the fused step and its VJP) into a shared
+library with a plain C interface and loads it with ctypes.
 
 kind='cuda': nvcc for sm_90a (Hopper), at first use, into
 diffdart_tpu_torch/_build/ (listed in .gitignore), keyed by a hash of the
@@ -82,6 +82,10 @@ def build(kind: str = "cuda") -> ctypes.CDLL:
     for name in ("fused_step_f32", "fused_step_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.build_log = log
     lib.build_seconds = seconds

@@ -1,26 +1,31 @@
-"""Fused timestep on the structure-of-arrays layout: the Hopper kernel
-(ops/csrc/fused_step.cu) on CUDA tensors, its plain PyTorch version
-(sim/tilestep.py) on CPU tensors.
+"""Fused timestep on the structure-of-arrays layout: the Hopper kernels
+(ops/csrc/fused_step.cu: the step and its VJP) on CUDA tensors, their plain
+PyTorch version (sim/tilestep.py, and autograd through it) on CPU tensors.
 
 Counterpart of diffdart_tpu/ops/pallas_step.py. The TPU lays envs out as
 (nq|nv, 8, L) lane tiles and needs B % 1024 == 0; here a state is (nq, B) /
 (nv, B) with one env per column, any B, and `to_soa` / `from_soa` replace
 `to_tiles` / `from_tiles`.
 
-Not yet supported: the backward kernel (port of `_bwd_kernel`, next slice).
-On CUDA, a call with grad enabled and an input that requires grad raises
-NotImplementedError; on the CPU autograd runs through the plain version.
-The kernel covers the plain version's whole subset (REVOLUTE / PRISMATIC /
-PLANAR / WELD / FREE / BALL joints; capsule / sphere / box vs fixed-plane
-contacts; joint-limit, servo and joint-friction rows) within the size caps
-below; a CUDA call for a model over a cap raises NotImplementedError.
+Gradients: on CUDA, a call with grad enabled and an input that requires
+grad goes through FusedStepFn, whose backward is the VJP kernel (port of
+`_bwd_kernel`, in the same .cu); on the CPU autograd runs through the
+plain version. The kernels cover the plain version's whole subset
+(REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL joints; capsule /
+sphere / box vs fixed-plane contacts; joint-limit, servo and joint-friction
+rows) within the size caps below; a CUDA call for a model over a cap raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import weakref
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from diffdart_tpu_torch.dynamics.model import JointType, Model, State
 from diffdart_tpu_torch.ops import _build
@@ -155,6 +160,10 @@ def _load(kind: str) -> ctypes.CDLL:
     return lib
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 class _FusedStepKernel:
     """Wrapper of the CUDA kernel. `launches` counts kernel launches, and
     nothing else."""
@@ -180,31 +189,95 @@ class _FusedStepKernel:
         return qo, vo
 
 
+class _FusedStepVjpKernel:
+    """Wrapper of the VJP kernel: (dq, dv, dtau) = (gq, gv) . d(q', v') /
+    d(q, v, tau), with B (nq + 2 nv) threads. With primal=True it also
+    returns the step (q', v') that the dual run computed. `launches` counts
+    kernel launches, and nothing else."""
+
+    name = "fused_step_vjp"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, desc_i, desc_f, q, v, tau, gq, gv, primal=False):
+        for g, x, name in ((gq, q, "gq"), (gv, v, "gv")):
+            if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
+                raise ValueError(f"fused_step_vjp: {name} must be a contiguous {x.dtype} tensor of "
+                                 f"shape {tuple(x.shape)} on {x.device}")
+        lib = _load("cuda")
+        fn = lib.fused_step_vjp_f32 if q.dtype == torch.float32 else lib.fused_step_vjp_f64
+        dq, dv, dtau = torch.empty_like(q), torch.empty_like(v), torch.empty_like(tau)
+        qo, vo = (torch.empty_like(q), torch.empty_like(v)) if primal else (None, None)
+        (nq, B), nv = q.shape, v.shape[0]
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(*(_ptr(x) for x in (desc_i, desc_f, q, v, tau, gq, gv, dq, dv, dtau, qo, vo)),
+                     B, nq + 2 * nv, stream)
+        if err:
+            raise RuntimeError(f"fused_step_vjp kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return (dq, dv, dtau, qo, vo) if primal else (dq, dv, dtau)
+
+
 KERNEL = _FusedStepKernel()
+VJP_KERNEL = _FusedStepVjpKernel()
+
+
+class FusedStepFn(torch.autograd.Function):
+    """(q', v') = step(q, v, tau) with the step's VJP as its backward, the
+    counterpart of the JAX package's custom_vjp (ops/pallas_step.py:101-114):
+    the forward launches the step and saves (q, v, tau); the backward
+    launches the VJP, which recomputes the step. `launch(q, v, tau)` and
+    `launch_vjp(q, v, tau, gq, gv)` are the two launchers (FusedStep passes
+    the CUDA kernels)."""
+
+    @staticmethod
+    def forward(ctx, launch, launch_vjp, q, v, tau):
+        ctx.launch_vjp = launch_vjp
+        ctx.save_for_backward(q, v, tau)
+        return launch(q, v, tau)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gq, gv):
+        q, v, tau = ctx.saved_tensors
+        return (None, None, *ctx.launch_vjp(q, v, tau, gq.contiguous(), gv.contiguous()))
 
 
 class FusedStep:
     """step(q, v, tau) -> (q', v') on SoA tensors (nq, B), (nv, B), (nv, B)
-    for one model. CPU tensors run the plain version (differentiable); CUDA
-    tensors launch the kernel or raise."""
+    for one model. CPU tensors run the plain version (differentiable by
+    autograd); CUDA tensors launch the kernel, through FusedStepFn when an
+    input requires grad, or raise. Holds no reference to the model, so a
+    cached FusedStep does not keep its model alive."""
 
     def __init__(self, model: Model):
-        self.model = model
+        self.nq, self.nv = model.nq, model.nv
         self.plain = build_tile_step(model, output="stacked")
+        self._unsupported = kernel_unsupported_reason(model)
+        self._packed = None if self._unsupported else pack_descriptor(model)
         self._desc = {}  # (device, dtype) -> (DescI tensor, DescF tensor)
 
     def descriptor(self, device, dtype):
+        if self._unsupported:
+            raise NotImplementedError(f"fused_step kernel: {self._unsupported}")
         key = (str(device), dtype)
         if key not in self._desc:
-            di, df = pack_descriptor(self.model)
+            di, df = self._packed
             self._desc[key] = (torch.as_tensor(di, device=device),
                                torch.as_tensor(df, dtype=dtype, device=device))
         return self._desc[key]
 
+    def _launch(self, q, v, tau):
+        return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau)
+
+    def _launch_vjp(self, q, v, tau, gq, gv):
+        return VJP_KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, gq, gv)
+
     def __call__(self, q, v, tau):
-        m = self.model
         B = q.shape[-1]
-        for x, k, name in ((q, m.nq, "q"), (v, m.nv, "v"), (tau, m.nv, "tau")):
+        for x, k, name in ((q, self.nq, "q"), (v, self.nv, "v"), (tau, self.nv, "tau")):
             if x.shape != (k, B):
                 raise ValueError(f"fused_step: {name} must be ({k}, B={B}), got {tuple(x.shape)}")
             if x.dtype not in (torch.float32, torch.float64) or x.dtype != q.dtype:
@@ -213,19 +286,47 @@ class FusedStep:
                 raise ValueError(f"fused_step: {name} is on {x.device}, q on {q.device}")
         if q.device.type == "cpu":
             return self.plain(q, v, tau)
-        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, v, tau)):
-            raise NotImplementedError(
-                "fused_step: gradients on the GPU need the backward kernel (port of "
-                "_bwd_kernel), which is the next slice; run under torch.no_grad() or on the CPU")
         if q.device.type != "cuda":
             raise ValueError(f"fused_step: unsupported device {q.device}")
-        di, df = self.descriptor(q.device, q.dtype)
-        return KERNEL(di, df, q.contiguous(), v.contiguous(), tau.contiguous())
+        q, v, tau = q.contiguous(), v.contiguous(), tau.contiguous()
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, v, tau)):
+            return FusedStepFn.apply(self._launch, self._launch_vjp, q, v, tau)
+        return self._launch(q, v, tau)
+
+
+_STEPS = {}  # id(model) -> (weak reference to the model, tensor versions, its FusedStep)
+
+
+def _forget(key, ref):
+    if _STEPS.get(key, (None,))[0] is ref:
+        del _STEPS[key]
+
+
+def _versions(model: Model):
+    """The version counters of the model's tensors: an in-place change to
+    any of them bumps its counter."""
+    return tuple(x._version for x in (getattr(model, f.name) for f in dataclasses.fields(model))
+                 if isinstance(x, torch.Tensor))
 
 
 def build_fused_step(model: Model) -> FusedStep:
-    """Raises TileStepUnsupported for models outside the fused subset."""
-    return FusedStep(model)
+    """The FusedStep of `model`, built once and kept, with its device
+    descriptors, while the model lives: repeated rollouts skip the set-up.
+    Keyed on the model object's identity (a Model holds tensors, so it
+    cannot be a key by value) and held weakly, so a dropped model frees its
+    entry; a tensor of the model changed in place rebuilds it. Raises
+    TileStepUnsupported for models outside the fused subset."""
+    key, versions = id(model), _versions(model)
+    hit = _STEPS.get(key)
+    if hit is not None and hit[0]() is model and hit[1] == versions:
+        return hit[2]
+    step = FusedStep(model)
+    _STEPS[key] = (weakref.ref(model, functools.partial(_forget, key)), versions, step)
+    return step
+
+
+def _host_f64(*xs):
+    return [np.ascontiguousarray(x.detach().cpu().numpy(), np.float64) for x in xs]
 
 
 def host_kernel_step(model: Model, q, v, tau):
@@ -234,13 +335,29 @@ def host_kernel_step(model: Model, q, v, tau):
     where there is no GPU. Not on any execution path."""
     lib = _load("host")
     di, df = pack_descriptor(model)
-    q, v, tau = (np.ascontiguousarray(x.detach().cpu().numpy(), np.float64) for x in (q, v, tau))
+    q, v, tau = _host_f64(q, v, tau)
     qo, vo = np.empty_like(q), np.empty_like(v)
     ptr = [a.ctypes.data for a in (di, df, q, v, tau, qo, vo)]
     err = lib.fused_step_f64(*ptr, q.shape[1], None)
     if err:
         raise RuntimeError(f"host fused_step failed: {err}")
     return torch.from_numpy(qo), torch.from_numpy(vo)
+
+
+def host_kernel_vjp(model: Model, q, v, tau, gq, gv):
+    """The VJP kernel's per-(env, direction) code compiled for the host CPU,
+    on float64 SoA tensors: ((dq, dv, dtau), (q', v')), where (q', v') is
+    the primal step of the dual run. Not on any execution path."""
+    lib = _load("host")
+    di, df = pack_descriptor(model)
+    q, v, tau, gq, gv = _host_f64(q, v, tau, gq, gv)
+    outs = [np.empty_like(x) for x in (q, v, tau, q, v)]
+    ptr = [a.ctypes.data for a in (di, df, q, v, tau, gq, gv, *outs)]
+    err = lib.fused_step_vjp_f64(*ptr, q.shape[1], model.nq + 2 * model.nv, None)
+    if err:
+        raise RuntimeError(f"host fused_step_vjp failed: {err}")
+    dq, dv, dtau, qo, vo = (torch.from_numpy(x) for x in outs)
+    return (dq, dv, dtau), (qo, vo)
 
 
 def to_soa(x):
@@ -254,9 +371,11 @@ def from_soa(x):
 
 
 def make_bench_fns(model: Model):
-    """roll(q_soa, v_soa, taus_soa) -> (qf, vf): the forward rollout of the
-    benchmark over SoA inputs ((nq, B), (nv, B), (T, nv, B)). The gradient
-    closure of the JAX version comes with the backward kernel."""
+    """(roll, grad) over SoA inputs ((nq, B), (nv, B), (T, nv, B)), as the
+    JAX version's (ops/pallas_step.py:133-155): roll(q, v, taus) -> (qf, vf)
+    is the forward rollout of the benchmark; grad(q, v, taus) -> dtaus is
+    the gradient of its BPTT loss mean(qf[1]**2) + 1e-4 mean(taus**2) with
+    respect to the control tape."""
     step = build_fused_step(model)
 
     def roll(q, v, taus):
@@ -264,14 +383,23 @@ def make_bench_fns(model: Model):
             q, v = step(q, v, taus[t])
         return q, v
 
-    return roll
+    def loss(q, v, taus):
+        qf, _ = roll(q, v, taus)
+        return (qf[1] ** 2).mean() + 1e-4 * (taus**2).mean()
+
+    def grad(q, v, taus):
+        taus = taus.detach().requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(loss(q, v, taus), taus)[0]
+
+    return roll, grad
 
 
 def rollout_tiled(model: Model, state: State, taus) -> State:
     """Rollout on the fused path. state: batched State with (B, nq)/(B, nv)
-    fields; taus: (T, B, nv). Returns the final batched State. On the CPU
-    gradients flow wrt state and taus (model parameters are baked)."""
-    roll = make_bench_fns(model)
+    fields; taus: (T, B, nv). Returns the final batched State. Gradients
+    flow wrt state and taus on both devices (model parameters are baked)."""
+    roll, _ = make_bench_fns(model)
     qf, vf = roll(to_soa(state.q), to_soa(state.v), taus.transpose(1, 2).contiguous())
     t = state.t + taus.shape[0] * float(model.dt) if state.t is not None else None
     return State(q=from_soa(qf), v=from_soa(vf), t=t)

@@ -12,8 +12,8 @@ NotImplementedError with the reason.
 from __future__ import annotations
 
 from diffdart_tpu_torch.dynamics.model import Model, State
-from diffdart_tpu_torch.ops.fused_step import rollout_tiled
-from diffdart_tpu_torch.sim.tilestep import TileStepUnsupported, check_supported
+from diffdart_tpu_torch.ops.fused_step import build_fused_step, rollout_tiled
+from diffdart_tpu_torch.sim.tilestep import TileStepUnsupported
 
 _PARAM_FIELDS = ("X_rot", "X_pos", "axis", "axis2", "mass", "com", "inertia", "damping",
                  "armature", "spring_stiff", "q_rest", "q_lo", "q_hi", "gravity", "dt",
@@ -23,9 +23,10 @@ _PARAM_FIELDS = ("X_rot", "X_pos", "axis", "axis2", "mass", "com", "inertia", "d
 
 def supports_fused(model: Model) -> bool:
     """True if `model` is in the fused subset (joint types, contact pair
-    types, row types; see sim/tilestep.py)."""
+    types, row types; see sim/tilestep.py). Builds the model's cached
+    FusedStep on the way, which the rollout then reuses."""
     try:
-        check_supported(model)
+        build_fused_step(model)
         return True
     except TileStepUnsupported:
         return False
@@ -50,9 +51,11 @@ def _fallback_reason(model: Model) -> str | None:
 
 def rollout_fast(model: Model, state: State, taus) -> State:
     """Batched rollout on the fused path. state: batched State with
-    (B, nq)/(B, nv) fields; taus: (T, B, nv). Returns the final State. On
-    CUDA tensors every step is one launch of the fused-step kernel; on CPU
-    tensors the plain version runs and gradients flow wrt state and taus."""
+    (B, nq)/(B, nv) fields; taus: (T, B, nv). Returns the final State.
+    Gradients flow wrt state and taus on both devices. On CUDA tensors every
+    step is one launch of the fused-step kernel, and the backward pass one
+    launch of the VJP kernel per step; on CPU tensors the plain version runs
+    and autograd differentiates it."""
     reason = _fallback_reason(model)
     if reason is not None:
         raise NotImplementedError(

@@ -1,13 +1,19 @@
-"""The fused-step kernel (diffdart_tpu_torch/ops/csrc/fused_step.cu) against
-its plain PyTorch version on a card. Imports no JAX, so it runs on a machine
-that has only PyTorch and the CUDA toolkit:
+"""The fused-step kernel and its VJP kernel
+(diffdart_tpu_torch/ops/csrc/fused_step.cu) against their plain PyTorch
+version on a card. Imports no JAX, so it runs on a machine that has only
+PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -p no:randomly -n 0
 
-Skips without a CUDA device. Tolerances: float64 q atol 1e-8, v atol 1e-7
-(the same arithmetic in the same order, so rounding only); float32 allows
-active-set flips on under 1% of envs (the Woodbury polish amplifies
-rounding by about eps/cfm) and requires finite output.
+Skips without a CUDA device. Step tolerances: float64 q atol 1e-8, v atol
+1e-7 (the same arithmetic in the same order, so rounding only); float32
+allows active-set flips on under 1% of envs (the Woodbury polish amplifies
+rounding by about eps/cfm) and requires finite output. VJP tolerances
+(diffdart_tpu_torch/ops/vjp_check.py, which says why): float64 against
+torch.autograd.grad through the plain version, at rtol 1e-6 plus atol 1e-8
+times each array's largest magnitude on >= 99% of envs; float32 against
+forward-mode AD of the plain float32 step, the kernel's own mode, at a
+median env error of at most 1e-4 and >= 90% of envs within 1e-2.
 
 KERNEL_MODELS covers every joint, contact and row type of the kernel's
 subset; tests/test_torch_fused_step.py runs the same models through the
@@ -21,6 +27,7 @@ from diffdart_tpu_torch.dynamics.model import (
     GeomType, JointType, ModelBuilder, State, enable_joint_friction, enable_servo)
 from diffdart_tpu_torch.models import cheetah_init_q, half_cheetah, jump_worm
 from diffdart_tpu_torch.ops import fused_step as fs
+from diffdart_tpu_torch.ops import vjp_check as vc
 from diffdart_tpu_torch.sim.fast import rollout_fast
 
 WORM_Q0 = np.array([0.06, 0.0, 0.25, -0.5])
@@ -138,9 +145,66 @@ def test_odd_batch_and_launch_count():
 
 
 @pytest.mark.cuda
-def test_cuda_inputs_that_require_grad_raise():
+@pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vjp_kernel_matches_plain_autograd(model, dtype):
     _cuda()
-    m, q0 = _half_cheetah(torch.float32, "cuda")
-    q, v, tau = _soa_cuda(inputs(q0, m.nq, m.nv, 64, 7), torch.float32)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        fs.build_fused_step(m)(q, v, tau.requires_grad_(True))
+    m, q0 = KERNEL_MODELS[model](dtype, "cuda")
+    B = 1024
+    q, v, tau = _soa_cuda(inputs(q0, m.nq, m.nv, B, 8), dtype)
+    rng = np.random.RandomState(9)
+    gq, gv = _soa_cuda((rng.randn(B, m.nq), rng.randn(B, m.nv)), dtype)
+    step = fs.build_fused_step(m)
+    n0 = fs.VJP_KERNEL.launches
+    dq, dv, dtau, qo, vo = fs.VJP_KERNEL(*step.descriptor(q.device, dtype), q, v, tau, gq, gv,
+                                         primal=True)
+    torch.cuda.synchronize()
+    assert fs.VJP_KERNEL.launches == n0 + 1
+    with torch.no_grad():
+        qk, vk = step(q, v, tau)
+    assert torch.equal(qo, qk) and torch.equal(vo, vk)
+    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+    want = torch.autograd.grad(step.plain(*xs), xs, (gq, gv))
+    got = (dq, dv, dtau)
+    assert all(torch.isfinite(x).all() for x in got)
+    if dtype == torch.float64:
+        assert vc.envs_within(got, want) >= vc.VJP_SHARE
+        return
+    median, share, _ = vc.f32_stats(got, vc.forward_mode_vjp(step.plain, q, v, tau, gq, gv))
+    assert vc.f32_ok(median, share), (median, share)
+
+
+@pytest.mark.cuda
+def test_bptt_launch_count():
+    """rollout_fast with taus that require grad, B = 1000, T = 3, then
+    backward: 3 launches of each kernel, a finite non-zero gradient."""
+    _cuda()
+    m = half_cheetah(dtype=torch.float32, device="cuda")
+    B, T = 1000, 3
+    state = State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
+    taus = (0.1 * torch.randn(T, B, m.nv, device="cuda")).requires_grad_(True)
+    n0, g0 = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    out = rollout_fast(m, state, taus)
+    ((out.q[:, 1] ** 2).mean() + 1e-4 * (taus**2).mean()).backward()
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == n0 + T and fs.VJP_KERNEL.launches == g0 + T
+    assert torch.isfinite(taus.grad).all() and taus.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_inputs_that_require_grad_get_gradients():
+    """A CUDA input that requires grad goes through the two kernels: the
+    gradient flows to q, v and tau, and matches plain autograd in float64."""
+    _cuda()
+    m, q0 = _half_cheetah(torch.float64, "cuda")
+    q, v, tau = (x.requires_grad_(True) for x in _soa_cuda(inputs(q0, m.nq, m.nv, 64, 7), torch.float64))
+    step = fs.build_fused_step(m)
+    g0 = fs.VJP_KERNEL.launches
+    qn, vn = step(q, v, tau)
+    got = torch.autograd.grad((qn**2).sum() + (vn**2).sum(), (q, v, tau))
+    assert fs.VJP_KERNEL.launches == g0 + 1
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, v, tau)]
+    qp, vp = step.plain(*xs)
+    want = torch.autograd.grad((qp**2).sum() + (vp**2).sum(), xs)
+    assert all(torch.isfinite(x).all() and x.abs().sum() > 0 for x in got)
+    assert vc.envs_within(got, want) >= vc.VJP_SHARE
