@@ -6,7 +6,10 @@
 Phases, one line each; any failure raises and exits nonzero, and nothing
 falls back to the CPU or to the plain version:
   1. device   -- the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build    -- nvcc builds ops/csrc/fused_step.cu from this checkout.
+  2. build    -- nvcc builds every kernel source of this checkout
+                 (ops/csrc/fused_step.cu, ops/csrc/jacobi_sweeps.cu), one
+                 process each, started together (each wrapper module's
+                 _load, on its own thread).
   3. f64      -- half-cheetah, B = 4096: 20 steps of kernel vs plain
                  version, re-synced to the plain version after each step;
                  q atol 1e-8, v atol 1e-7.
@@ -53,6 +56,41 @@ falls back to the CPU or to the plain version:
                  within rtol 1e-5 plus atol 1e-8 of its largest magnitude (10
                  contact steps already amplify the rounding of the gradient;
                  50 amplify it past any tolerance).
+The vmap stack (sim/step.py, sim/batched.py; the sweep kernel of
+ops/csrc/jacobi_sweeps.cu, which replaces both Pallas sweep kernels):
+ 11. build    -- the sweep kernel's ptxas line (built in phase 2).
+ 12. sweeps64 / sweeps32 -- the sweep kernel against _jacobi on the card, on
+                 the LCPs that prepare_constrained assembles at phase 3's
+                 inputs (B = 4096, D = 42) and on their first 13 envs; the
+                 limits of diffdart_tpu_torch/ops/sweep_check.py (float64
+                 1e-12, float32 1e-4, relative to max(1, |lam|)).
+ 13. vmap-step -- float64, B = 4096, lcp_pivot_iters = 0: the vmap step with
+                 contact_solver='lowrank_pallas' against the fused step
+                 kernel, 20 steps re-synced, q 1e-7 and v 1e-5 (the JAX
+                 package's tile-vs-vmap tolerances) on >= 99% of envs; the
+                 number of envs outside them (active-set flips) is printed.
+ 14. vmap-main -- sim/step.py::rollout with 'lowrank_pallas', half-cheetah,
+                 B = 4096, T = 50, tau = 0.1 N(0,1), float32, standing start:
+                 T launches of jacobi_sweeps_single, a finite final state
+                 with a plausible torso height; timed with CUDA events. The
+                 sweep kernel's ms per launch is its device time (the C
+                 launcher called back to back on prepared pointers, see
+                 sweep_device_ms); the wrapper's host time per call is
+                 printed beside it.
+ 15. batched  -- the same rollout through step_batched: T launches of
+                 jacobi_sweeps; one float64 step matches the vmap step
+                 within phase 13's tolerances on >= 99% of envs; timed.
+ 16. vmap-bptt -- rollout_fast with model.mass requiring grad: it warns and
+                 falls back to the vmap stack; the bench loss of phase 9 and
+                 backward(): 2T sweep launches (forward plus per-step
+                 recomputation), dtau less the regulariser's gradient
+                 non-zero on >= 99% of envs, d loss / d mass finite and
+                 non-zero; peak memory and fwd+grad env-steps/s printed.
+ 17. vmap-reference -- float64, B = 256, T = 10: the gradient of
+                 mean(q_T[:, 1]^2) over the converged envs (natural-map
+                 residual below 1e-8 at every step) with respect to tau and
+                 mass, through the kernel ('lowrank_pallas') against the
+                 plain sweeps ('lowrank'), within ops/vjp_check.py's limits.
 Then one JSON line with the kernels' numbers, the card line, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -86,6 +124,44 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Mean host time of issuing fn() in ms over `reps` calls, after one
+    warm-up; the device work they queue is waited for only afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
+    """(device ms, host ms) per launch of the sweep kernel: its C launcher
+    called directly on prepared pointers, `reps` launches back to back
+    between CUDA events, so none of the wrapper's checks sits between two
+    launches. While the host ms (the time to issue one launch) is below the
+    device ms, the card never waits for the host and the events time the
+    kernel alone."""
+    fn = lib.jacobi_sweeps_f32 if A.dtype == torch.float32 else lib.jacobi_sweeps_f64
+    A, b, lo, hi, mu, fidx = (x.contiguous() for x in (A, b, lo, hi, mu, fidx))
+    lam = torch.empty_like(b)
+    args = (*(x.data_ptr() for x in (A, b, lo, hi, mu, fidx, lam)), b.shape[0], b.shape[1], iters,
+            torch.cuda.current_stream().cuda_stream)
+    check(fn(*args) == 0, "sweep kernel launch failed")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    errs = [fn(*args) for _ in range(reps)]
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    end.record()
+    torch.cuda.synchronize()
+    check(not any(errs), "sweep kernel launch failed")
+    return start.elapsed_time(end) / reps, host
 
 
 _COUNTED = {
@@ -149,9 +225,13 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
     from diffdart_tpu_torch.dynamics.model import State
     from diffdart_tpu_torch.models import cheetah_init_q, half_cheetah
     from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.ops import sweep_check as sc
     from diffdart_tpu_torch.ops import vjp_check as vc
     from diffdart_tpu_torch.sim.fast import rollout_fast
 
@@ -165,13 +245,19 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | {kind}")
 
-    # ---- 2. build ----
+    # ---- 2. build (every source at once, one nvcc each) ----
     t0 = time.perf_counter()
-    lib = fs._load("cuda")
-    ptx = [ln.strip() for ln in lib.build_log.splitlines()
-           if "Compiling entry" in ln or "registers" in ln or "spill" in ln or "stack frame" in ln]
-    print(f"[build] fused_step.cu: nvcc {lib.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s"
-          f" | ptxas: {' / '.join(ptx)}")
+    with ThreadPoolExecutor(2) as pool:
+        lib, lib_sw = pool.map(lambda load: load("cuda"), (fs._load, P._load))
+    build_wall = time.perf_counter() - t0
+
+    def ptxas(lib):
+        return " / ".join(ln.strip() for ln in lib.build_log.splitlines()
+                          if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+                          or "stack frame" in ln)
+
+    print(f"[build] fused_step.cu: nvcc {lib.build_seconds:.1f} s ({build_wall:.1f} s for both sources "
+          f"in parallel) | ptxas: {ptxas(lib)}")
 
     rng = np.random.RandomState(0)
     m64 = half_cheetah(dt=2e-3, dtype=torch.float64, device="cuda")
@@ -374,6 +460,200 @@ def main():
     check(bool(dt_pl.abs().max() > 0), "zero reference gradient")
     check(frac_g >= 0.99, "float64 BPTT gradient through the kernels disagrees with the plain version")
 
+    # ---- 11. build of the sweep kernel (started with the others in phase 2) ----
+    print(f"[build] jacobi_sweeps.cu: nvcc {lib_sw.build_seconds:.1f} s | ptxas: {ptxas(lib_sw)}")
+
+    from diffdart_tpu_torch.ops.lcp import _jacobi
+    from diffdart_tpu_torch.sim import step as S
+    from diffdart_tpu_torch.sim.batched import step_batched
+    from diffdart_tpu_torch.sim.constrained import prepare_constrained, solver_diagnostics
+
+    def reset_counts():
+        fs.KERNEL.launches = fs.VJP_KERNEL.launches = 0
+        P.KERNEL.launches = P.KERNEL_SINGLE.launches = 0
+
+    def bs(x, dtype):  # (B, k) numpy -> batch-first tensor on the card
+        return torch.tensor(x, dtype=dtype, device="cuda")
+
+    # ---- 12. sweeps64 / sweeps32: kernel vs _jacobi on real half-cheetah LCPs ----
+    lcps = {}
+    sweep_errs = {}
+    for dtype, m_ in ((torch.float64, m64), (torch.float32, m32)):
+        with torch.no_grad():
+            lcp = prepare_constrained(m_, State(q=bs(q_np, dtype), v=bs(v_np, dtype)), bs(tau_np, dtype))[0]
+        lcps[dtype] = lcp
+        args = (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu)
+        for Bc in (B, 13):
+            got = P.jacobi_sweeps_pallas(*(x[:Bc] for x in args), lcp.fidx, m_.contact_iters)
+            want = _jacobi(*(x[:Bc] for x in args), lcp.fidx, m_.contact_iters)
+            torch.cuda.synchronize()
+            err, rel = sc.sweep_error(got, want)
+            name = "sweeps64" if dtype == torch.float64 else "sweeps32"
+            print(f"[{name}] B={Bc} D={lcp.b.shape[-1]} iters={m_.contact_iters}: max |dlam| {err:.3e}, "
+                  f"max relative {rel:.3e} (limit {sc.REL_F64 if dtype == torch.float64 else sc.REL_F32:g}); "
+                  f"finite {bool(torch.isfinite(got).all())}; max |lam| {want.abs().max().item():.3e}")
+            check(sc.sweep_ok(got, want), f"{name}: the sweep kernel disagrees with _jacobi at B={Bc}")
+            sweep_errs[dtype, Bc] = err
+
+    # ---- 13. vmap-step: the vmap step through the sweep kernel vs the fused step kernel ----
+    m64p = m64.replace(contact_solver="lowrank_pallas", lcp_pivot_iters=0)
+    q, v, tau = bs(q_np, torch.float64), bs(v_np, torch.float64), bs(tau_np, torch.float64)
+    flips = 0
+    eq = ev = 0.0
+    with torch.no_grad():
+        for _ in range(20):
+            sv = S.step(m64p, State(q=q, v=v), tau)
+            qk, vk = step64(fs.to_soa(q), fs.to_soa(v), fs.to_soa(tau))
+            torch.cuda.synchronize()
+            dq, dv = (sv.q - qk.T).abs().amax(1), (sv.v - vk.T).abs().amax(1)
+            flips = max(flips, int(((dq > 1e-7) | (dv > 1e-5)).sum()))
+            eq, ev = max(eq, dq.median().item()), max(ev, dv.median().item())
+            q, v = qk.T.contiguous(), vk.T.contiguous()
+    print(f"[vmap-step] f64 B={B}, 20 steps re-synced to the fused step kernel: at most {flips} envs "
+          f"outside q 1e-7 / v 1e-5 in a step (active-set flips); median env |dq| <= {eq:.3e}, "
+          f"|dv| <= {ev:.3e}")
+    check(flips <= B // 100, "the vmap step disagrees with the fused step kernel on > 1% of envs")
+
+    # ---- 14. vmap-main: rollout on the vmap stack through the sweep kernel ----
+    m32p = m32.replace(contact_solver="lowrank_pallas")
+    state_b = State(q=q_main, v=torch.zeros(B, m32.nv, device="cuda"))
+    with torch.no_grad():
+        reset_counts()
+        final_v, _ = S.rollout(m32p, state_b, taus)
+        torch.cuda.synchronize()
+        launches_single = P.KERNEL_SINGLE.launches
+    z = final_v.q[:, 0]
+    finite_v = bool(torch.isfinite(final_v.q).all() and torch.isfinite(final_v.v).all())
+    print(f"[vmap-main] rollout (vmap stack, lowrank_pallas) B={B} T={T} f32: {launches_single} "
+          f"jacobi_sweeps_single launches; final torso z min {z.min().item():.4f} max "
+          f"{z.max().item():.4f}; finite {finite_v}")
+    check(launches_single == T, f"expected {T} sweep launches on the vmap path, got {launches_single}")
+    check(finite_v and bool(((z > 0.0) & (z < 1.0)).all()), "bad final state on the vmap path")
+    lcp32 = lcps[torch.float32]
+    a32 = (lcp32.A, lcp32.b, lcp32.lo, lcp32.hi, lcp32.mu)
+    it = m32.contact_iters
+    with torch.no_grad():
+        sweep_ms, sweep_issue_ms = sweep_device_ms(lib_sw, *a32, lcp32.fidx, it)
+        sweep_wrap_ms = host_ms(lambda: P.jacobi_sweeps_pallas_single(*a32, lcp32.fidx, it), reps=200)
+        sweep_plain_ms = cuda_ms(lambda: _jacobi(*a32, lcp32.fidx, it), reps=20)
+        vstep_ms = cuda_ms(lambda: S.step(m32p, state_b, taus[0]), reps=5)
+        vroll_ms = cuda_ms(lambda: S.rollout(m32p, state_b, taus), reps=2)
+    sps_v = B * T / (vroll_ms * 1e-3)
+    print(f"[vmap-main] timing on {card}: sweep kernel {sweep_ms:.4f} ms/launch on the device "
+          f"(issuing one launch {sweep_issue_ms:.4f} ms on the host; one wrapper call "
+          f"{sweep_wrap_ms:.4f} ms on the host), plain _jacobi {sweep_plain_ms:.4f} ms; vmap step "
+          f"{vstep_ms:.3f} ms; rollout {vroll_ms:.2f} ms = {sps_v:.6g} fwd env-steps/s (fused path: "
+          f"{sps:.6g})")
+    check(sweep_issue_ms < sweep_ms, "the sweep kernel's timing waited on the host")
+    with torch.no_grad():
+        vstep_host_ms = host_ms(lambda: S.step(m32p, state_b, taus[0]), reps=1)
+    print(f"[vmap-main] host time to enqueue one vmap step {vstep_host_ms:.3f} ms of its "
+          f"{vstep_ms:.3f} ms on the device clock")
+
+    # ---- 15. batched: step_batched through the batched sweep kernel ----
+    with torch.no_grad():
+        reset_counts()
+        sb = state_b
+        for t in range(T):
+            sb = step_batched(m32, sb, taus[t])
+        torch.cuda.synchronize()
+        launches_batched = P.KERNEL.launches
+    zb = sb.q[:, 0]
+    print(f"[batched] step_batched B={B} T={T} f32: {launches_batched} jacobi_sweeps launches; final "
+          f"torso z min {zb.min().item():.4f} max {zb.max().item():.4f}; finite "
+          f"{bool(torch.isfinite(sb.q).all())}")
+    check(launches_batched == T, f"expected {T} batched sweep launches, got {launches_batched}")
+    check(bool(torch.isfinite(sb.q).all() and torch.isfinite(sb.v).all()), "non-finite step_batched state")
+    m64b = m64.replace(lcp_pivot_iters=0)
+    q, v, tau = bs(q_np, torch.float64), bs(v_np, torch.float64), bs(tau_np, torch.float64)
+    with torch.no_grad():
+        sb64 = step_batched(m64b, State(q=q, v=v), tau)
+        sv64 = S.step(m64b, State(q=q, v=v), tau)
+    dq, dv = (sb64.q - sv64.q).abs().amax(1), (sb64.v - sv64.v).abs().amax(1)
+    share_b = ((dq <= 1e-7) & (dv <= 1e-5)).double().mean().item()
+    with torch.no_grad():
+        batched_ms = cuda_ms(lambda: step_batched(m32, state_b, taus[0]), reps=5)
+        batched_sweep_ms, batched_issue_ms = sweep_device_ms(lib_sw, *a32, lcp32.fidx, it)
+        batched_wrap_ms = host_ms(lambda: P.jacobi_sweeps_pallas(*a32, lcp32.fidx, it), reps=200)
+    print(f"[batched] f64 step vs the vmap step: {100 * share_b:.2f}% of envs within q 1e-7, v 1e-5 "
+          f"(max |dq| {dq.max().item():.3e}, |dv| {dv.max().item():.3e}); timing on {card}: "
+          f"step_batched {batched_ms:.3f} ms/step, sweep kernel {batched_sweep_ms:.4f} ms/launch on "
+          f"the device (issue {batched_issue_ms:.4f} ms, wrapper call {batched_wrap_ms:.4f} ms on "
+          f"the host)")
+    check(batched_issue_ms < batched_sweep_ms, "the sweep kernel's timing waited on the host")
+    check(share_b >= 0.99, "step_batched disagrees with the vmap step")
+
+    # ---- 16. vmap-bptt: rollout_fast falls back to the vmap stack for mass gradients ----
+    import warnings
+
+    def vmap_bptt():
+        mass = m32p.mass.clone().requires_grad_(True)
+        taus_g = taus.clone().requires_grad_(True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fin = rollout_fast(m32p.replace(mass=mass), state_b, taus_g)
+        loss = (fin.q[:, 1] ** 2).mean() + 1e-4 * (taus_g**2).mean()
+        loss.backward()
+        return taus_g.grad, mass.grad, caught
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dtaus_v, dmass, caught = vmap_bptt()
+    torch.cuda.synchronize()
+    launches_bptt = P.KERNEL_SINGLE.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warned = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    d_dyn_v = dtaus_v - g_reg
+    share_v = (d_dyn_v != 0).any(-1).any(0).double().mean().item()
+    print(f"[vmap-bptt] rollout_fast with mass requiring grad, B={B} T={T} f32: warned "
+          f"{warned[:1]}; {launches_bptt} sweep launches (forward + per-step recomputation), "
+          f"{fs.KERNEL.launches} fused-step launches; dtau through the dynamics non-zero on "
+          f"{100 * share_v:.2f}% of envs, max {d_dyn_v.abs().max().item():.3e}; d loss/d mass "
+          f"{dmass.tolist()}; peak memory {peak_gb:.3f} GB")
+    check(any("require grad" in w for w in warned), "rollout_fast did not warn about the fallback")
+    check(fs.KERNEL.launches == 0, "the fused path ran where the vmap stack must")
+    check(launches_bptt == 2 * T, f"expected {2 * T} sweep launches in the vmap BPTT, got {launches_bptt}")
+    check(bool(torch.isfinite(dtaus_v).all()) and share_v >= 0.99, "bad dtau on the vmap BPTT path")
+    check(bool(torch.isfinite(dmass).all() and (dmass != 0).any()), "bad mass gradient")
+    vbptt_ms = cuda_ms(vmap_bptt, reps=2)
+    sps_vg = B * T / (vbptt_ms * 1e-3)
+    print(f"[vmap-bptt] timing on {card}: loss + backward {vbptt_ms:.1f} ms = {sps_vg:.6g} fwd+grad "
+          f"env-steps/s (fused path: {sps_grad:.6g})")
+
+    # ---- 17. vmap-reference: float64 gradients through the kernel vs the plain sweeps ----
+    Br, Tr = 256, 10
+    m64r = m64.replace(contact_solver="lowrank")
+    st_r = State(q=cheetah_init_q(m64).repeat(Br, 1), v=torch.zeros(Br, m64.nv, dtype=torch.float64,
+                                                                    device="cuda"))
+    taus_ref = taus[:Tr, :Br].double()
+    conv = torch.ones(Br, dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        s_ = st_r
+        for t in range(Tr):
+            conv &= solver_diagnostics(m64r, s_, taus_ref[t]) < 1e-8
+            s_ = S.step(m64r, s_, taus_ref[t])
+    w = conv.double()
+
+    def grads(model):
+        mass = model.mass.clone().requires_grad_(True)
+        x = taus_ref.clone().requires_grad_(True)
+        fin = S.rollout_checkpointed(model.replace(mass=mass), st_r, x)
+        return torch.autograd.grad((w * fin.q[:, 1] ** 2).sum() / w.sum(), (x, mass))
+
+    gk = grads(m64r.replace(contact_solver="lowrank_pallas"))
+    gp = grads(m64r)
+    torch.cuda.synchronize()
+    ok_r = True
+    for name, a, b in zip(("dtau", "dmass"), gk, gp):
+        tol = vc.VJP_RTOL * b.abs() + vc.VJP_ATOL * b.abs().max()
+        within = ((a - b).abs() <= tol)
+        ok_r &= bool(within[:, conv].all()) if name == "dtau" else bool(within.all())
+        print(f"[vmap-reference] f64 B={Br} T={Tr}, {int(conv.sum())} converged envs: {name} max "
+              f"|difference| {(a - b).abs().max().item():.3e} of max |{name}| {b.abs().max().item():.3e}")
+    check(bool(gp[0].abs().max() > 0) and bool(gp[1].abs().max() > 0), "zero reference gradient")
+    check(int(conv.sum()) >= Br // 2, "too few converged envs for the reference check")
+    check(ok_r, "the float64 gradient through the sweep kernel disagrees with the plain sweeps")
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -390,6 +670,33 @@ def main():
     bound_vjp_ms = 1e3 * max(tv_bytes, tv_ops)
     print(f"[bound] VJP: {ops_v} ops/env-step x {B} envs, {nbytes_v} bytes: bytes "
           f"{1e3 * tv_bytes:.3e} ms, ops {1e3 * tv_ops:.3e} ms")
+    # the sweeps: each input read once (A, b, lo, hi, mu, fidx), lam written
+    # once; per env 2 D^2 + 5 D operations for the row scales, and per
+    # iteration one matvec (2 D^2: each row's dot product is taken in one of
+    # the two half-sweeps) and 10 D per half-sweep (step, bounds, clip,
+    # select)
+    Bs, Ds = lcp32.b.shape
+    sw_bytes = (Bs * Ds * Ds + 5 * Bs * Ds) * 4 + Ds * 8
+    sw_ops = Bs * (2 * Ds * Ds + 5 * Ds + it * (2 * Ds * Ds + 20 * Ds))
+    ts_bytes, ts_ops = sw_bytes / HBM_BYTES_PER_S, sw_ops / F32_OPS_PER_S
+    sweep_bound_ms = 1e3 * max(ts_bytes, ts_ops)
+    print(f"[bound] sweeps: {sw_ops // Bs} ops/env x {Bs} envs, {sw_bytes} bytes (B={Bs}, D={Ds}, "
+          f"iters={it}): bytes {1e3 * ts_bytes:.3e} ms, ops {1e3 * ts_ops:.3e} ms")
+    sweep_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "diffdart_tpu_torch/ops/csrc/jacobi_sweeps.cu",
+        "replaces": replaces,
+        "launches": launches_,
+        "max_abs_err": sweep_errs[torch.float32, B],
+        "ms": ms_,
+        "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": "operations" if ts_ops >= ts_bytes else "bytes",
+        "library_ms": None,
+    } for name, replaces, launches_, ms_ in (
+        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, batched_sweep_ms),
+        ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, sweep_ms))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "route": "cuda",
@@ -414,7 +721,7 @@ def main():
         "bound_ms": bound_vjp_ms,
         "bound_by": "operations" if tv_ops >= tv_bytes else "bytes",
         "library_ms": None,
-    }]}))
+    }, *sweep_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

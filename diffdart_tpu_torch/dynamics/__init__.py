@@ -1,3 +1,3 @@
-"""Model data. Counterpart of diffdart_tpu/dynamics/; so far model.py only.
-joints.py, kinematics.py and dynamics.py (the vmap stack) are not ported
-yet."""
+"""Model data and the vmap stack's dynamics. Counterpart of
+diffdart_tpu/dynamics/: model.py, joints.py (the fused subset's six joint
+types), kinematics.py and dynamics.py. shapes.py is not ported yet."""

@@ -1,4 +1,6 @@
-"""Element algebra and kernels. Counterpart of diffdart_tpu/ops/; so far
-tile.py and the fused step (fused_step.py, csrc/fused_step.cu, built by
-_build.py). The LCP solvers (lcp*.py), pallas_lcp.py, smalllinalg.py and
-native_lcp.py are not ported yet."""
+"""Element algebra, small linear algebra, LCP solvers and kernels.
+Counterpart of diffdart_tpu/ops/: tile.py, the fused step (fused_step.py,
+csrc/fused_step.cu), smalllinalg.py, the low-rank LCP of the vmap stack
+(lcp.py, lcp_lowrank.py, lcp_pivot.py) and its sweep kernel (pallas_lcp.py,
+csrc/jacobi_sweeps.cu); the CUDA sources are built by _build.py.
+native_lcp.py and the dense boxed_lcp are not ported yet."""

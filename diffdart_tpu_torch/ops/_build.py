@@ -1,16 +1,22 @@
-"""Builds ops/csrc/fused_step.cu (the fused step and its VJP) into a shared
-library with a plain C interface and loads it with ctypes.
+"""Builds a kernel source of ops/csrc/ into a shared library with a plain C
+interface and loads it with ctypes. Each wrapper module declares the
+argtypes of its library's functions next to its own code (pointers and the
+stream as c_void_p).
 
 kind='cuda': nvcc for sm_90a (Hopper), at first use, into
-diffdart_tpu_torch/_build/ (listed in .gitignore), keyed by a hash of the
-source and flags. kind='host': the same per-env code compiled by the host
-C++ compiler, which lets the kernel's arithmetic be checked on a machine
-without a GPU.
+diffdart_tpu_torch/_build/ (listed in .gitignore), keyed by the source name
+and a hash of the source and flags. kind='host': the same per-env code
+compiled by the host C++ compiler, which lets a kernel's arithmetic be
+checked on a machine without a GPU.
 
 Precision flags: no fast math. -fmad=false keeps every multiply and add
-separately rounded, as the plain PyTorch version computes them, so kernel
-and plain version agree to rounding; the Woodbury polish amplifies rounding
-by about eps/cfm, which is why sin/cos/sqrt/division stay IEEE.
+separately rounded, as the plain PyTorch versions compute them, so kernels
+and plain versions agree to rounding; the Woodbury polish of the LCP
+amplifies rounding by about eps/cfm, which is why sin/cos/sqrt/division
+stay IEEE.
+
+Sources: "fused_step" (the fused step and its VJP), "jacobi_sweeps" (the
+boxed-LCP sweeps).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import tempfile
 import time
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "csrc" / "fused_step.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 _NVCC_FLAGS = [
@@ -49,27 +55,28 @@ def _compiler(kind: str) -> tuple[str, list]:
 
 
 @functools.lru_cache(maxsize=None)
-def build(kind: str = "cuda") -> ctypes.CDLL:
-    """Compile (if not already built for this source) and load the library.
-    The compiler's report (nvcc: ptxas registers/spills) is kept as
-    `lib.build_log`, the compile time in seconds as `lib.build_seconds`
-    (0.0 when the library was already built)."""
+def build(source: str, kind: str = "cuda") -> ctypes.CDLL:
+    """Compile ops/csrc/<source>.cu (if not already built for this source
+    text) and load it. The compiler's report (nvcc: ptxas registers and
+    spills) is kept as `lib.build_log`, the compile time in seconds as
+    `lib.build_seconds` (0.0 when the library was already built)."""
     cc, flags = _compiler(kind)
-    src = SRC.read_bytes()
+    src_path = CSRC / f"{source}.cu"
+    src = src_path.read_bytes()
     key = hashlib.sha256(src + " ".join([kind, *flags]).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libfused_step_{kind}_{key}.so"
+    out = BUILD_DIR / f"lib{source}_{kind}_{key}.so"
     log, seconds = "", 0.0
     if not out.exists():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([cc, *flags, "-o", tmp, str(SRC)],
+            proc = subprocess.run([cc, *flags, "-o", tmp, str(src_path)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"building {SRC.name} ({kind}) failed:\n{proc.stdout}\n{proc.stderr}")
+                    f"building {src_path.name} ({kind}) failed:\n{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
         finally:
             if os.path.exists(tmp):
@@ -77,24 +84,15 @@ def build(kind: str = "cuda") -> ctypes.CDLL:
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(str(out))
-    lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.fused_step_layout.restype = None
-    for name in ("fused_step_f32", "fused_step_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     lib.build_log = log
     lib.build_seconds = seconds
     return lib
 
 
-def layout(lib: ctypes.CDLL) -> list:
-    """[DescI ints, DescF<float> floats, DescF<double> doubles, MAX_NB,
-    MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D] as compiled."""
-    buf = (ctypes.c_int * 10)()
-    lib.fused_step_layout(buf)
-    return list(buf)
+def declare(fn, n_ptr: int, n_int: int, stream: bool = True):
+    """argtypes of a C launcher taking n_ptr pointers, then n_int ints, then
+    (optionally) the stream; returns an int error code."""
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + ([ctypes.c_void_p] if stream else []))
+    fn.restype = ctypes.c_int
+    return fn

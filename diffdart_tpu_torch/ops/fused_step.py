@@ -150,11 +150,22 @@ def pack_descriptor(model: Model):
     return _flat(_I_LAYOUT, ints, np.int32), _flat(_F_LAYOUT, floats, np.float64)
 
 
+@functools.lru_cache(maxsize=None)
 def _load(kind: str) -> ctypes.CDLL:
-    lib = _build.build(kind)
+    """The built fused_step library with its functions' argtypes declared
+    and its descriptor layout checked against the packer's."""
+    lib = _build.build("fused_step", kind)
+    lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_step_layout.restype = None
+    for name in ("fused_step_f32", "fused_step_f64"):
+        _build.declare(getattr(lib, name), 7, 1)
+    for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
+        _build.declare(getattr(lib, name), 12, 2)
     want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
             MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D]
-    got = _build.layout(lib)
+    buf = (ctypes.c_int * 10)()
+    lib.fused_step_layout(buf)  # [DescI ints, DescF<float>, DescF<double>, the caps]
+    got = list(buf)
     if got != want:
         raise RuntimeError(f"fused_step descriptor layout mismatch: kernel {got}, packer {want}")
     return lib

@@ -1,18 +1,23 @@
-"""Front door of the fused rollout.
+"""Auto-selecting fast rollout: the fused path when the model is in the fused
+subset and its parameters do not require grad, the vmap stack otherwise.
 
 Counterpart of diffdart_tpu/sim/fast.py. Batch layout is the ordinary
-batch-first (B, nq)/(B, nv) State; the SoA re-layout happens inside
-ops/fused_step.py. The TPU's B % 1024 rule does not apply: the SoA layout
-takes any B.
+batch-first (B, nq)/(B, nv) State; the SoA re-layout of the fused path
+happens inside ops/fused_step.py. The TPU's B % 1024 rule does not apply:
+the SoA layout takes any B.
 
-Not yet supported: the vmap fallback path (sim/step.py of the JAX package is
-not ported). Where the JAX version falls back, this one raises
-NotImplementedError with the reason.
+Where the fused path cannot be used, rollout_fast warns (UserWarning, with
+the reason) and runs sim/step.py::rollout_checkpointed on the vmap stack,
+as the JAX package does; gradients with respect to model parameters (mass,
+inertia, friction, ...) exist only there.
 """
 from __future__ import annotations
 
+import warnings
+
 from diffdart_tpu_torch.dynamics.model import Model, State
 from diffdart_tpu_torch.ops.fused_step import build_fused_step, rollout_tiled
+from diffdart_tpu_torch.sim.step import rollout_checkpointed
 from diffdart_tpu_torch.sim.tilestep import TileStepUnsupported
 
 _PARAM_FIELDS = ("X_rot", "X_pos", "axis", "axis2", "mass", "com", "inertia", "damping",
@@ -50,15 +55,18 @@ def _fallback_reason(model: Model) -> str | None:
 
 
 def rollout_fast(model: Model, state: State, taus) -> State:
-    """Batched rollout on the fused path. state: batched State with
-    (B, nq)/(B, nv) fields; taus: (T, B, nv). Returns the final State.
-    Gradients flow wrt state and taus on both devices. On CUDA tensors every
-    step is one launch of the fused-step kernel, and the backward pass one
-    launch of the VJP kernel per step; on CPU tensors the plain version runs
-    and autograd differentiates it."""
+    """Batched rollout on the fastest available path. state: batched State
+    with (B, nq)/(B, nv) fields; taus: (T, B, nv). Returns the final State.
+
+    On the fused path, CUDA tensors launch the fused-step kernel once per
+    step (and the VJP kernel once per step of the backward pass), CPU
+    tensors run its plain version; gradients flow wrt state and taus. Where
+    the fused path cannot be used, a UserWarning names the reason (silence it
+    with a `warnings` filter) and the vmap stack's per-step-recomputing
+    rollout runs instead; gradients then also flow wrt model parameters."""
     reason = _fallback_reason(model)
-    if reason is not None:
-        raise NotImplementedError(
-            f"rollout_fast: the JAX package falls back to its vmap path here, "
-            f"which is not ported yet: {reason}")
-    return rollout_tiled(model, state, taus)
+    if reason is None:
+        return rollout_tiled(model, state, taus)
+    warnings.warn(f"rollout_fast: falling back to the slower vmap path: {reason}",
+                  UserWarning, stacklevel=2)
+    return rollout_checkpointed(model, state, taus)

@@ -1,6 +1,6 @@
 """The fused-step kernel and its VJP kernel
-(diffdart_tpu_torch/ops/csrc/fused_step.cu) against their plain PyTorch
-version on a card. Imports no JAX, so it runs on a machine that has only
+(diffdart_tpu_torch/ops/csrc/fused_step.cu) and the LCP sweep kernel
+(ops/csrc/jacobi_sweeps.cu) against their plain PyTorch versions on a card. Imports no JAX, so it runs on a machine that has only
 PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -p no:randomly -n 0
@@ -18,6 +18,14 @@ median env error of at most 1e-4 and >= 90% of envs within 1e-2.
 KERNEL_MODELS covers every joint, contact and row type of the kernel's
 subset; tests/test_torch_fused_step.py runs the same models through the
 kernel's host build.
+
+Sweep kernel: against ops/lcp.py::_jacobi at D = 9 (a random problem) and
+D = 42 (half-cheetah LCPs), odd B, both dtypes, within
+ops/sweep_check.py's limits (float64 1e-12, float32 1e-4, relative to
+max(1, |lam|)); the vmap step with contact_solver='lowrank_pallas' (the
+kernel) against 'lowrank' (_jacobi) per model: float64 q 1e-8, v 1e-6,
+float32 q 1e-4, v 5e-2, on >= 99% of envs (the polish amplifies the
+sweeps' rounding difference by about eps/cfm).
 """
 import numpy as np
 import pytest
@@ -27,7 +35,12 @@ from diffdart_tpu_torch.dynamics.model import (
     GeomType, JointType, ModelBuilder, State, enable_joint_friction, enable_servo)
 from diffdart_tpu_torch.models import cheetah_init_q, half_cheetah, jump_worm
 from diffdart_tpu_torch.ops import fused_step as fs
+from diffdart_tpu_torch.ops import pallas_lcp as P
+from diffdart_tpu_torch.ops import sweep_check as sc
 from diffdart_tpu_torch.ops import vjp_check as vc
+from diffdart_tpu_torch.ops.lcp import _jacobi
+from diffdart_tpu_torch.sim import step as S
+from diffdart_tpu_torch.sim.constrained import prepare_constrained
 from diffdart_tpu_torch.sim.fast import rollout_fast
 
 WORM_Q0 = np.array([0.06, 0.0, 0.25, -0.5])
@@ -208,3 +221,78 @@ def test_cuda_inputs_that_require_grad_get_gradients():
     want = torch.autograd.grad((qp**2).sum() + (vp**2).sum(), xs)
     assert all(torch.isfinite(x).all() and x.abs().sum() > 0 for x in got)
     assert vc.envs_within(got, want) >= vc.VJP_SHARE
+
+
+def _sweep_problem(D, B, dtype):
+    """(A, b, lo, hi, mu, fidx, iters) on the card: D = 9, a random
+    problem (3 contacts, rank 5, tests/test_pallas_lcp.py's generator);
+    D = 42, the half-cheetah's LCPs at perturbed states."""
+    if D == 9:
+        rng = np.random.default_rng(B)
+        J = rng.normal(size=(B, 9, 5))
+        A = np.einsum("bik,bjk->bij", J, J) + 1e-3 * np.eye(9)
+        lo = np.zeros((B, 9))
+        hi = np.concatenate([np.full((B, 3), np.inf), np.zeros((B, 6))], axis=1)
+        mu = np.concatenate([np.zeros((B, 3)), np.full((B, 6), 0.5)], axis=1)
+        xs = [torch.tensor(x, dtype=dtype, device="cuda") for x in (A, rng.normal(size=(B, 9)), lo, hi, mu)]
+        return (*xs, torch.tensor([-1, -1, -1, 0, 1, 2, 0, 1, 2], device="cuda"), 6)
+    m, q0 = _half_cheetah(dtype, "cuda")
+    q, v, tau = (torch.tensor(x, dtype=dtype, device="cuda") for x in inputs(q0, m.nq, m.nv, B, 10))
+    with torch.no_grad():
+        lcp = prepare_constrained(m, State(q=q, v=v), tau)[0]
+    return (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu, lcp.fidx, m.contact_iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [13, 1001])
+@pytest.mark.parametrize("D", [9, 42])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_kernel_matches_plain_version(dtype, D, B):
+    _cuda()
+    A, b, lo, hi, mu, fidx, iters = _sweep_problem(D, B, dtype)
+    n0, n1 = P.KERNEL.launches, P.KERNEL_SINGLE.launches
+    got = P.jacobi_sweeps_pallas(A, b, lo, hi, mu, fidx, iters)
+    got1 = P.jacobi_sweeps_pallas_single(A, b, lo, hi, mu, fidx, iters)
+    torch.cuda.synchronize()
+    assert (P.KERNEL.launches, P.KERNEL_SINGLE.launches) == (n0 + 1, n1 + 1)
+    want = _jacobi(A, b, lo, hi, mu, fidx, iters)
+    assert torch.equal(got, got1)
+    assert sc.sweep_ok(got, want), sc.sweep_error(got, want)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_sweep_wrapper_raises():
+    _cuda()
+    A, b, lo, hi, mu, fidx, iters = _sweep_problem(9, 8, torch.float64)
+    with pytest.raises(ValueError, match="is on cpu"):
+        P.jacobi_sweeps_pallas(A, b.cpu(), lo, hi, mu, fidx, iters)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        P.jacobi_sweeps_pallas(*(x.half() for x in (A, b, lo, hi, mu)), fidx, iters)
+    D = P.MAX_D + 1
+    big = torch.eye(D, dtype=torch.float64, device="cuda").expand(2, D, D)
+    vec = torch.zeros(2, D, dtype=torch.float64, device="cuda")
+    with pytest.raises(NotImplementedError, match="cap"):
+        P.jacobi_sweeps_pallas_single(big, vec, vec, vec, vec, torch.full((D,), -1, device="cuda"),
+                                      iters)
+    with pytest.raises(RuntimeError, match="forward only"):
+        P.jacobi_sweeps_pallas(A, b.clone().requires_grad_(True), lo, hi, mu, fidx, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vmap_step_through_the_kernel_matches_plain_sweeps(model, dtype):
+    _cuda()
+    m, q0 = KERNEL_MODELS[model](dtype, "cuda")
+    q, v, tau = (torch.tensor(x, dtype=dtype, device="cuda") for x in inputs(q0, m.nq, m.nv, 1024, 11))
+    with torch.no_grad():
+        n0 = P.KERNEL_SINGLE.launches
+        k = S.step(m.replace(contact_solver="lowrank_pallas"), State(q=q, v=v), tau)
+        torch.cuda.synchronize()
+        assert P.KERNEL_SINGLE.launches == n0 + 1
+        p = S.step(m.replace(contact_solver="lowrank"), State(q=q, v=v), tau)
+    tq, tv = (1e-8, 1e-6) if dtype == torch.float64 else (1e-4, 5e-2)
+    ok = ((k.q - p.q).abs().amax(1) <= tq) & ((k.v - p.v).abs().amax(1) <= tv)
+    assert torch.isfinite(k.q).all() and torch.isfinite(k.v).all()
+    assert ok.double().mean() >= 0.99, ok.double().mean()

@@ -227,9 +227,12 @@ def test_unsupported_models_raise():
     with pytest.raises(TileStepUnsupported):
         fs.build_fused_step(universal)
     assert not supports_fused(universal)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        rollout_fast(universal, State(q=torch.zeros(2, 2), v=torch.zeros(2, 2)),
-                     torch.zeros(1, 2, 2))
+    # outside the fused subset: rollout_fast warns and falls back to the vmap
+    # stack, which does not have UNIVERSAL joints yet either
+    z = torch.zeros(2, 2, dtype=torch.float64)
+    with pytest.warns(UserWarning, match="outside the fused subset"), \
+            pytest.raises(NotImplementedError, match="vmap stack"):
+        rollout_fast(universal, State(q=z, v=z), torch.zeros(1, 2, 2, dtype=torch.float64))
     # in the plain version's subset, over a kernel cap: 17 contact pairs
     b = ModelBuilder(dt=1e-3)
     b.add_geom(-1, GeomType.PLANE)
@@ -240,11 +243,16 @@ def test_unsupported_models_raise():
     assert supports_fused(many)
     with pytest.raises(NotImplementedError, match="cap"):
         fs.pack_descriptor(many)
-    # model parameters that require grad would be baked as constants
+    # model parameters that require grad would be baked as constants: the
+    # rollout warns and takes the vmap stack, where the mass gets a gradient
     worm = _worm()
     traced = worm.replace(mass=worm.mass.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="require grad"):
-        rollout_fast(traced, State(q=torch.zeros(2, 4), v=torch.zeros(2, 4)), torch.zeros(1, 2, 4))
+    z = torch.zeros(2, 4, dtype=torch.float64)
+    with pytest.warns(UserWarning, match="require grad"):
+        out = rollout_fast(traced, State(q=z + torch.tensor([0.3, 0, 0, 0.2], dtype=z.dtype), v=z),
+                           torch.zeros(1, 2, 4, dtype=torch.float64))
+    (g,) = torch.autograd.grad(out.q[:, 0].sum(), traced.mass)
+    assert torch.isfinite(g).all()
 
 
 def test_gpu_inputs_that_require_grad_raise():
