@@ -9,7 +9,8 @@ falls back to the CPU or to the plain version:
   2. build    -- nvcc builds every kernel source of this checkout
                  (ops/csrc/fused_step.cu, ops/csrc/jacobi_sweeps.cu), one
                  process each, started together (each wrapper module's
-                 _load, on its own thread).
+                 _load, on its own thread); ptxas's registers and stack of
+                 the step kernel and of the VJP kernel, per dtype.
   3. f64      -- half-cheetah, B = 4096: 20 steps of kernel vs plain
                  version, re-synced to the plain version after each step;
                  q atol 1e-8, v atol 1e-7.
@@ -26,20 +27,22 @@ falls back to the CPU or to the plain version:
   6. reference -- the same rollout in float64 at B = 256 through the kernel
                  and through the plain version: >= 99% of envs within
                  q 1e-6, v 1e-4 at the end of the 50 steps.
-  7. grad64   -- the VJP kernel, half-cheetah, B = 4096, one step in
-                 float64 with (q, v, tau, gq, gv) from a numpy seed, against
+  7. grad64   -- the VJP kernel (reverse mode on a tape, one thread per
+                 env), half-cheetah, B = 4096, one step in float64 with
+                 (q, v, tau, gq, gv) from a numpy seed, against
                  torch.autograd.grad through the plain version: every env
                  finite, >= 99% of envs within rtol 1e-6 plus atol 1e-8 times
-                 each of dq, dv, dtau's largest magnitude, and the dual run's
-                 primal equal to kernel 1's output.
-  8. grad32   -- the same step in float32 against forward-mode AD of the
-                 plain float32 step (the kernel's own mode, on the same
+                 each of dq, dv, dtau's largest magnitude, and the tape's
+                 primal equal to kernel 1's output. The tape's node count per
+                 env, its bytes per env and per launch.
+  8. grad32   -- the same step in float32 against reverse-mode autograd of
+                 the plain float32 step (the kernel's own mode, on the same
                  primal): finite, a median env error of at most 1e-4 and
                  >= 90% of envs within 1e-2. The loose share is the eps/cfm
                  amplification of the Woodbury pass (0.12 at float32's eps and
-                 cfm = 1e-6): where two codes round a tangent differently, an
-                 env's error is amplified that far. Plain reverse-mode
-                 autograd in float32 is printed beside it; it cannot be held to
+                 cfm = 1e-6): where two codes round an adjoint differently,
+                 an env's error is amplified that far. Forward-mode AD of the
+                 plain float32 step is printed beside it; it cannot be held to
                  either (forward- and reverse-mode sums run in other orders).
                  Tolerances and their reasons: diffdart_tpu_torch/ops/vjp_check.py.
   9. bptt     -- the main path of training: rollout_fast on the half-cheetah,
@@ -49,7 +52,13 @@ falls back to the CPU or to the plain version:
                  50 launches of each kernel, a finite dtau whose part through
                  the kernels (dtau less the regulariser's own gradient) is
                  non-zero on >= 99% of envs; then loss + backward is timed
-                 with CUDA events (fwd+grad env-steps/s).
+                 five times with CUDA events (median, min, max; fwd+grad
+                 env-steps/s of the median). The VJP kernel's ms per launch
+                 is its device time (its C launcher called back to back on
+                 prepared pointers, see vjp_device_ms), with the device
+                 times of its counting launch and of its recording without
+                 the sweep; the wrapper's host time per call is printed
+                 beside it.
  10. bptt-reference -- float64, B = 256, T = 10: the gradient of
                  mean(q_T[:, 1]^2) alone (all of it through the kernels)
                  against the same through the plain version, >= 99% of envs
@@ -164,6 +173,58 @@ def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
     return start.elapsed_time(end) / reps, host
 
 
+def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
+    """(device ms, host ms) per launch of the VJP kernel: its C launcher
+    called directly on prepared pointers (a tape of `cap` nodes per env
+    allocated once), `reps` launches back to back between CUDA events, as
+    sweep_device_ms does for the sweeps. part='whole' is the launch the
+    BPTT makes; 'record' records the tape and stops (dq null: no sweep);
+    'count' is the counting launch (no tape: the recording's arithmetic)."""
+    from diffdart_tpu_torch.ops.fused_step import tape_bytes
+
+    fn = lib.fused_step_vjp_f32 if q.dtype == torch.float32 else lib.fused_step_vjp_f64
+    outs = [torch.empty_like(x) for x in (q, v, tau)]
+    if part != "whole":
+        outs[0] = None
+    tape = torch.empty(tape_bytes(q.dtype, cap, q.shape[1]), dtype=torch.uint8, device=q.device)
+    status = torch.zeros(2, dtype=torch.int32, device=q.device)
+    args = (*(x.data_ptr() for x in (*desc, q, v, tau, gq, gv)),
+            *(None if x is None else x.data_ptr() for x in outs), None, None,
+            None if part == "count" else tape.data_ptr(), status.data_ptr(), q.shape[1], cap,
+            torch.cuda.current_stream().cuda_stream)
+    check(fn(*args) == 0, "VJP kernel launch failed")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    errs = [fn(*args) for _ in range(reps)]
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    end.record()
+    torch.cuda.synchronize()
+    check(not any(errs) and int(status[1]) == 0, "VJP kernel launch failed or its tape overflowed")
+    return start.elapsed_time(end) / reps, host
+
+
+def ptxas_lines(lib):
+    """{kernel name: "N registers, M bytes stack"} from nvcc's ptxas report
+    (-Xptxas -v), one entry per kernel and dtype."""
+    names = {"fused_step_kernelIf": "fused_step<float>", "fused_step_kernelId": "fused_step<double>",
+             "fused_step_vjp_kernelIf": "fused_step_vjp<float>",
+             "fused_step_vjp_kernelId": "fused_step_vjp<double>",
+             "jacobi_sweeps_kernelIf": "jacobi_sweeps<float>",
+             "jacobi_sweeps_kernelId": "jacobi_sweeps<double>"}
+    out, cur, stack = {}, None, ""
+    for ln in lib.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((v for k, v in names.items() if k in ln), None)
+        elif "stack frame" in ln:
+            stack = ln.strip().split(",")[0]
+        elif "registers" in ln and cur is not None:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out[cur] = f"{regs}, {stack}"
+    return out
+
+
 _COUNTED = {
     "add", "radd", "sub", "rsub", "mul", "rmul", "truediv", "rtruediv", "div", "neg",
     "maximum", "minimum", "abs", "sqrt", "rsqrt", "sin", "cos", "where", "gt", "ge", "lt",
@@ -252,12 +313,12 @@ def main():
     build_wall = time.perf_counter() - t0
 
     def ptxas(lib):
-        return " / ".join(ln.strip() for ln in lib.build_log.splitlines()
-                          if "Compiling entry" in ln or "registers" in ln or "spill" in ln
-                          or "stack frame" in ln)
+        return "; ".join(f"{k}: {v}" for k, v in ptxas_lines(lib).items())
 
     print(f"[build] fused_step.cu: nvcc {lib.build_seconds:.1f} s ({build_wall:.1f} s for both sources "
           f"in parallel) | ptxas: {ptxas(lib)}")
+    check(all(k in ptxas_lines(lib) for k in ("fused_step<float>", "fused_step_vjp<float>")),
+          "no ptxas report of the step and VJP kernels")
 
     rng = np.random.RandomState(0)
     m64 = half_cheetah(dt=2e-3, dtype=torch.float64, device="cuda")
@@ -359,7 +420,8 @@ def main():
     rng_g = np.random.RandomState(2)
     gq_np, gv_np = rng_g.randn(B, m64.nq), rng_g.randn(B, m64.nv)
     q, v, tau, gq, gv = (soa(x, torch.float64) for x in (q_np, v_np, tau_np, gq_np, gv_np))
-    d64 = fs.VJP_KERNEL(*step64.descriptor(q.device, torch.float64), q, v, tau, gq, gv, primal=True)
+    d64 = fs.VJP_KERNEL(*step64.descriptor(q.device, torch.float64), q, v, tau, gq, gv,
+                        step64.tape_capacity(q, v, tau), primal=True)
     with torch.no_grad():
         qk, vk = step64(q, v, tau)
     xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
@@ -372,31 +434,38 @@ def main():
     print(f"[grad64] VJP one step at B={B}: {100 * share64:.2f}% of envs within rtol 1e-6 + "
           f"atol 1e-8 max|g|; env relative error median {rel64.median().item():.3e}, p99 "
           f"{rel64.quantile(0.99).item():.3e}, max {rel64.max().item():.3e}; max |d| {err64:.3e}; "
-          f"finite {finite64}; dual primal == kernel 1 output: {primal_eq}")
+          f"finite {finite64}; tape primal == kernel 1 output: {primal_eq}")
     check(finite64, "non-finite float64 VJP")
     check(primal_eq, "the VJP kernel's primal differs from kernel 1's output")
     check(share64 >= vc.VJP_SHARE, "float64 VJP kernel disagrees with plain autograd on > 1% of envs")
 
-    # ---- 8. grad32: the same step in float32 against forward-mode AD ----
+    # ---- 8. grad32: the same step in float32 against reverse-mode autograd ----
     q, v, tau, gq, gv = (soa(x, torch.float32) for x in (q_np, v_np, tau_np, gq_np, gv_np))
-    d32 = fs.VJP_KERNEL(*step32.descriptor(q.device, torch.float32), q, v, tau, gq, gv)
+    cap32 = step32.tape_capacity(q, v, tau)
+    d32 = fs.VJP_KERNEL(*step32.descriptor(q.device, torch.float32), q, v, tau, gq, gv, cap32)
+    rev32 = vc.reverse_mode_vjp(step32.plain, q, v, tau, gq, gv)
     fwd32 = vc.forward_mode_vjp(step32.plain, q, v, tau, gq, gv)
-    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
-    rev32 = torch.autograd.grad(step32.plain(*xs), xs, (gq, gv))
     torch.cuda.synchronize()
-    med32, share32, rel32 = vc.f32_stats(d32, fwd32)
-    med_rev, share_rev, _ = vc.f32_stats(rev32, fwd32)
+    med32, share32, rel32 = vc.f32_stats(d32, rev32)
+    med_fwd, share_fwd, _ = vc.f32_stats(fwd32, rev32)
     finite32 = all(bool(torch.isfinite(x).all()) for x in d32)
-    vjp32_err = max((a - b).abs().max().item() for a, b in zip(d32, fwd32))
-    print(f"[grad32] VJP one step at B={B} against forward-mode AD of the plain float32 step: env "
-          f"relative error median {med32:.3e}, p99 {rel32.quantile(0.99).item():.3e}, "
-          f"{100 * share32:.2f}% of envs within {vc.F32_REL:g}, max |d| {vjp32_err:.3e}; finite "
-          f"{finite32}; plain reverse mode against it (context): median {med_rev:.3e}, "
-          f"{100 * share_rev:.2f}% within {vc.F32_REL:g}")
+    vjp32_err = max((a - b).abs().max().item() for a, b in zip(d32, rev32))
+    exact32 = (rel32 == 0).double().mean().item()
+    print(f"[grad32] VJP one step at B={B} against reverse-mode autograd of the plain float32 step: "
+          f"env relative error median {med32:.3e}, p99 {rel32.quantile(0.99).item():.3e}, "
+          f"{100 * share32:.2f}% of envs within {vc.F32_REL:g}, {100 * exact32:.2f}% equal, max |d| "
+          f"{vjp32_err:.3e}; finite {finite32}; plain forward mode against it (context): median "
+          f"{med_fwd:.3e}, {100 * share_fwd:.2f}% within {vc.F32_REL:g}")
     check(finite32, "non-finite float32 VJP")
     check(vc.f32_ok(med32, share32),
-          f"float32 VJP kernel disagrees with forward-mode AD of the plain version (median > "
+          f"float32 VJP kernel disagrees with reverse-mode autograd of the plain version (median > "
           f"{vc.F32_MEDIAN:g} or < {100 * vc.F32_SHARE:g}% of envs within {vc.F32_REL:g})")
+    nodes32 = fs.VJP_KERNEL.tape_nodes(*step32.descriptor(q.device, torch.float32), q, v, tau)
+    check(fs.tape_capacity(nodes32) == cap32, "tape capacity is not the counted nodes plus margin")
+    per_env = fs.tape_bytes(torch.float32, nodes32, 1)
+    print(f"[tape] half-cheetah float32: {nodes32} nodes per env (capacity {cap32}), {per_env} bytes "
+          f"per env, {fs.tape_bytes(torch.float32, nodes32, B) / 1e6:.3f} MB per launch at B={B} "
+          f"({fs.tape_bytes(torch.float32, cap32, B) / 1e6:.3f} MB allocated)")
 
     # ---- 9. bptt, the main path of training: rollout_fast + backward ----
     def bptt(model, st, taus_in):
@@ -425,21 +494,36 @@ def main():
     check(launches_fwd == T and launches_vjp == T,
           f"expected {T} step and {T} VJP launches on the BPTT path, got {launches_fwd}, {launches_vjp}")
     check(bool(torch.isfinite(dtaus).all()) and share_dyn >= 0.99, "bad BPTT gradient")
-    bptt_ms = cuda_ms(lambda: bptt(m32, state, taus), reps=3)
+    bptt(m32, state, taus)
+    bptt_runs = sorted(cuda_ms(lambda: bptt(m32, state, taus), reps=1) for _ in range(5))
+    bptt_ms = bptt_runs[2]
     sps_grad = B * T / (bptt_ms * 1e-3)
     qs, vs, ts = fs.to_soa(q_main), torch.zeros(m32.nv, B, device="cuda"), taus[0].T.contiguous()
     gqs, gvs = torch.ones_like(qs), torch.ones_like(vs)
     desc32 = step32.descriptor(qs.device, torch.float32)
-    vjp_ms = cuda_ms(lambda: fs.VJP_KERNEL(*desc32, qs, vs, ts, gqs, gvs), reps=10)
+    vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32)
+    record_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="record")
+    count_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="count")
+    shared = torch.zeros(2, dtype=torch.int32, device="cuda")  # as a backward pass shares one
+    vjp_wrap_ms = host_ms(lambda: fs.VJP_KERNEL(*desc32, qs, vs, ts, gqs, gvs, cap32, status=shared),
+                          reps=10)
+    fs.check_tape(shared, cap32)
 
     def plain_vjp():
         xs = [x.clone().requires_grad_(True) for x in (qs, vs, ts)]
         torch.autograd.grad(step32.plain(*xs), xs, (gqs, gvs))
 
     plain_vjp_ms = cuda_ms(plain_vjp, reps=1)
-    print(f"[bptt] timing on {card}: VJP kernel {vjp_ms:.4f} ms/step, loss + backward "
-          f"{bptt_ms:.3f} ms = {sps_grad:.6g} fwd+grad env-steps/s; plain VJP (forward with "
-          f"graph + backward) {plain_vjp_ms:.2f} ms/step (context only)")
+    print(f"[bptt] timing on {card}: VJP kernel {vjp_ms:.4f} ms/launch on the device (issuing one "
+          f"launch {vjp_issue_ms:.4f} ms on the host; one wrapper call as the backward pass makes it "
+          f"{vjp_wrap_ms:.4f} ms of host time); its parts on the device: counting launch (the "
+          f"recording's arithmetic, no tape) {count_ms:.4f} ms, recording with its tape, no sweep "
+          f"{record_ms:.4f} ms, so the tape's stores {record_ms - count_ms:.4f} ms and the sweep "
+          f"{vjp_ms - record_ms:.4f} ms; loss + backward median {bptt_ms:.3f} ms (min "
+          f"{bptt_runs[0]:.3f}, max {bptt_runs[-1]:.3f}, 5 runs) = {sps_grad:.6g} fwd+grad "
+          f"env-steps/s; plain VJP (forward with graph + backward) {plain_vjp_ms:.2f} ms/step "
+          f"(context only)")
+    check(vjp_issue_ms < vjp_ms, "the VJP kernel's timing waited on the host")
 
     # ---- 10. bptt-reference: float64, B = 256, T = 10, kernels vs plain ----
     Tr = 10
@@ -669,7 +753,10 @@ def main():
     tv_bytes, tv_ops = nbytes_v / HBM_BYTES_PER_S, ops_v * B / F32_OPS_PER_S
     bound_vjp_ms = 1e3 * max(tv_bytes, tv_ops)
     print(f"[bound] VJP: {ops_v} ops/env-step x {B} envs, {nbytes_v} bytes: bytes "
-          f"{1e3 * tv_bytes:.3e} ms, ops {1e3 * tv_ops:.3e} ms")
+          f"{1e3 * tv_bytes:.3e} ms, ops {1e3 * tv_ops:.3e} ms; the tape's own byte floor (this "
+          f"design's, not the work's): {nodes32} nodes x {fs.tape_bytes(torch.float32, 1, 1)} bytes x "
+          f"{B} envs, written once and read once, "
+          f"{1e3 * 2 * fs.tape_bytes(torch.float32, nodes32, B) / HBM_BYTES_PER_S:.4f} ms")
     # the sweeps: each input read once (A, b, lo, hi, mu, fidx), lam written
     # once; per env 2 D^2 + 5 D operations for the row scales, and per
     # iteration one matvec (2 D^2: each row's dot product is taken in one of

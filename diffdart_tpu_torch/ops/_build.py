@@ -16,7 +16,12 @@ amplifies rounding by about eps/cfm, which is why sin/cos/sqrt/division
 stay IEEE.
 
 Sources: "fused_step" (the fused step and its VJP), "jacobi_sweeps" (the
-boxed-LCP sweeps).
+boxed-LCP sweeps). Each is compiled to objects and linked into one
+library. A source whose kernels take long to compile states a line
+`#define KERNEL_PARTS n`: the CUDA build then compiles it n times at once,
+each nvcc with -DKERNEL_PART=i (the source instantiates part i's kernels
+and their C launchers only). The host build is one part: it serves the
+tests, whose workers may build at the same time.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,9 +41,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
+_HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC"]
 
 
 def _compiler(kind: str) -> tuple[str, list]:
@@ -54,37 +60,54 @@ def _compiler(kind: str) -> tuple[str, list]:
     raise ValueError(f"unknown build kind {kind!r}")
 
 
+def _run_all(cmds):
+    """Run the commands at once; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 @functools.lru_cache(maxsize=None)
 def build(source: str, kind: str = "cuda") -> ctypes.CDLL:
     """Compile ops/csrc/<source>.cu (if not already built for this source
-    text) and load it. The compiler's report (nvcc: ptxas registers and
-    spills) is kept as `lib.build_log`, the compile time in seconds as
-    `lib.build_seconds` (0.0 when the library was already built)."""
+    text) and load it; with kind='cuda', in the parts the source states, all
+    at once (see the module docstring). The compiler's report (nvcc: ptxas
+    registers and spills), kept beside the library, is `lib.build_log`; the
+    compile time in seconds is `lib.build_seconds` (0.0 when the library
+    was already built)."""
     cc, flags = _compiler(kind)
     src_path = CSRC / f"{source}.cu"
     src = src_path.read_bytes()
+    stated = re.search(rb"^#define KERNEL_PARTS (\d+)", src, re.M)
+    parts = int(stated.group(1)) if stated and kind == "cuda" else 1
     key = hashlib.sha256(src + " ".join([kind, *flags]).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{source}_{kind}_{key}.so"
-    log, seconds = "", 0.0
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
     if not out.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+        tmp = os.path.join(tmpdir, out.name)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([cc, *flags, "-o", tmp, str(src_path)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"building {src_path.name} ({kind}) failed:\n{proc.stdout}\n{proc.stderr}")
+            objs = [os.path.join(tmpdir, f"part{i}.o") for i in range(parts)]
+            part = (lambda i: [f"-DKERNEL_PART={i}"]) if parts > 1 else (lambda i: [])
+            results = _run_all([[cc, *flags, *part(i), "-c", "-o", o, str(src_path)]
+                                for i, o in enumerate(objs)])
+            if all(rc == 0 for rc, _ in results):
+                results += _run_all([[cc, "-shared", "-o", tmp, *objs]])
+            log = "".join(text for _, text in results)
+            if any(rc != 0 for rc, _ in results):
+                raise RuntimeError(f"building {src_path.name} ({kind}) failed:\n{log}")
+            Path(tmp + ".log").write_text(log)
+            os.replace(tmp + ".log", log_path)
             os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            shutil.rmtree(tmpdir, ignore_errors=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(str(out))
-    lib.build_log = log
+    lib.build_log = log_path.read_text() if log_path.exists() else ""
     lib.build_seconds = seconds
     return lib
 

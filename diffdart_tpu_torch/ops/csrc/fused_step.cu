@@ -10,22 +10,37 @@
 // the order is the same, since the build turns off FMA contraction:
 // -fmad=false, and keeps IEEE sin/cos/sqrt/division).
 //
-// Kernel 2, fused_step_vjp_kernel: one thread per (env, input direction).
-// Replaces the Pallas TPU kernel `_bwd_kernel` of
+// Kernel 2, fused_step_vjp_kernel: one thread per env, reverse mode on a
+// tape. Replaces the Pallas TPU kernel `_bwd_kernel` of
 // diffdart_tpu/ops/pallas_step.py:60, which is jax.vjp of the same tile step
 // with the forward recomputed in the kernel. The VJP of one step is
-// g . d(q', v')/dx_k for the K = nq + 2 nv inputs x = (q, v, tau). Thread
-// (e, k) seeds a unit tangent on x_k, runs env_step on dual numbers (primal
-// plus one tangent) and writes gq . dq'/dx_k + gv . dv'/dx_k: no reduction
-// across threads, and the derivative is taken of the very code kernel 1 runs,
-// so the two cannot drift apart (the dual run's primal equals kernel 1's
-// output bit for bit). Why forward mode: it reuses env_step as it is, where
-// a reverse-mode adjoint would be a second code of the same length that only
-// the host build could check here; and B K threads (3,456 warps at B = 4096
-// for the half-cheetah, K = 27) fill the card where kernel 1's one thread
-// per env leaves it nearly idle. Its cost is K recomputations of the primal
-// per env; a reverse-mode adjoint with one thread per env is the redesign
-// for speed.
+// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau). Each thread runs
+// env_step once on Adj<S> values: every elementary operation appends a node
+// (its operands' node indices and the partials of torch's backward formula)
+// to the env's tape in device memory. The thread then seeds the adjoints of
+// q', v' with gq, gv, sweeps the nodes from last to first, adding each
+// node's adjoint times its partials into its operands' adjoints, and reads
+// dq, dv, dtau from the K = nq + 2 nv leaf nodes. The gradient is taken of
+// the very code kernel 1 runs (the recording's primal is kernel 1's output
+// bit for bit), so the two cannot drift apart, and nothing of the physics is
+// written twice. The recorded operations are the plain version's, in its
+// order and with its constant folding (ops/tile.py), and the sweep runs them
+// in the order torch's engine runs the plain version's backward (highest
+// sequence number first), so the adjoint sums round as torch's do.
+//
+// The tape: node n of env e sits at n * B + e (node-major, env-minor: a
+// warp's 32 stores coalesce while its envs take the same branches), reached
+// by the operators through a per-thread context (tape base, B, e, node
+// counter) in a __shared__ slot per thread of the 32-thread block. A node is
+// 16 bytes in float32 (two int32 operand indices, two partials) and its
+// adjoint 4; 24 and 8 in float64. Every env of a model records the same
+// number of nodes (the node kinds below): the half-cheetah records 7,243 in
+// float32, 144,860 bytes per env and 593 MB per launch at B = 4096 (7,153
+// and 228,896 bytes per env in float64). ops/fused_step.py counts the nodes
+// once per model and dtype with a launch that only counts, sizes the tape
+// with a margin, and raises when an env overflows it: the kernel then
+// counts on, stores nothing past the capacity, sets a flag and writes no
+// result for that env.
 //
 // What each kernel computes, per env: FK, world motion subspaces, body
 // velocities, the structured world inertias, the mass matrix (plus armature
@@ -39,13 +54,14 @@
 // pivoting), v' = v* + Minv J^T lam and the position update.
 //
 // Gradient semantics (sim/tilestep.py:_tile_lcp of both packages): the
-// sweeps and polish passes are stop-gradient, so the tangent build runs them
-// on primal values only. It then runs what kernel 1 skips: a probe pass at
-// `best` (primal) whose finiteness and drift decide `ok`, and one more
-// Woodbury pass on dual J, b and M at `ok ? best : 0`, whose tangent is the
-// implicit-function-theorem tangent of lam; the value stays `best`, and envs
-// that are not `ok` get a zero tangent. Kernel 1 returns `best` directly
-// (the value of that straight-through output) and skips both passes.
+// sweeps and polish passes are stop-gradient, so the recording runs them on
+// primal values only (they record nothing). It then runs what kernel 1
+// skips: a probe pass at `best` (primal) whose finiteness and drift decide
+// `ok`, and one more Woodbury pass on the recorded J, b and M at
+// `ok ? best : 0`, whose adjoint is the implicit-function-theorem gradient
+// of lam; the value stays `best` (straight_through), and envs that are not
+// `ok` get no gradient through lam. Kernel 1 returns `best` directly (the
+// value of that straight-through output) and skips both passes.
 //
 // Model data: the TPU kernels bake the model in as trace constants. Here the
 // model is a packed descriptor in device memory (DescI: topology as int32;
@@ -56,18 +72,21 @@
 // integration), capsule / sphere / box vs fixed-plane contacts, joint-limit
 // rows, and servo / joint-friction rows with constant boxes.
 //
-// What bounds them on the H100: not DRAM. An env reads 3 vectors and writes
-// 2 (the VJP: 5 and 3), but its LCP at D = 42, nv = 9 does tens of thousands
+// What bounds them on the H100: not DRAM. An env of kernel 1 reads 3
+// vectors and writes 2, but its LCP at D = 42, nv = 9 does tens of thousands
 // of dependent flops on per-thread arrays (J and W alone are 2 x 42 x 9
-// values; twice that as duals) that do not fit in registers and live in
-// local memory (L1/L2). Kernel 1 at B = 4096 has only 128 warps for 132
-// SMs, so it is latency bound. The VJP kernel has 27x the warps but each
-// thread's stack is twice kernel 1's, so the resident threads' working sets
-// do not fit in L1 and local-memory traffic through L2 is its expected
-// bound (not yet confirmed by a trace). Both first versions keep the simple
-// design and state their times beside the bound in PERF.md.
+// values) that do not fit in registers and live in local memory (L1/L2);
+// at B = 4096 there are only 128 warps for 132 SMs, so it is latency bound.
+// The VJP kernel has the same launch; its recording does kernel 1's work
+// and the gradient passes on 8-byte Adj values (twice the local-memory
+// bytes) and stores the tape, written once and read once (2 x 593 MB at
+// B = 4096, 0.35 ms at 3.35 TB/s: the floor of this design, not of the
+// work). The sweep hides what latency it can with one warp per SM: it loads
+// SWEEP_CHUNK nodes' records and adjoints at once and adds into earlier
+// chunks' adjoints by reductions it does not wait for. Both kernels state
+// their times beside the bound in PERF.md.
 //
-// Types: V is the value type (S, or Dual<S> in the VJP), S the descriptor's
+// Types: V is the value type (S, or Adj<S> in the VJP), S the descriptor's
 // scalar (float or double).
 
 #include <math.h>
@@ -181,91 +200,307 @@ HD double primal(double x) { return x; }
 HD double safe_div(double n, double d) { return n / d; }
 HD float safe_div(float n, float d) { return fabsf(d) <= 1e-20f ? 0.0f : n / d; }
 
-// ---------------- dual numbers (the VJP kernel's value type) ----------------
-// Derivatives follow torch's autograd formulas, which are JAX's: maximum and
-// minimum split the tangent evenly at a tie, abs has a zero tangent at 0, a
-// select takes the tangent of the chosen branch. Comparisons read the primal.
+// The plain version's torch.where, and a product or sum with a value that the
+// plain version holds as a tensor without a gradient (an active-set mask):
+// on plain values, the ordinary operations. The Adj overloads below record
+// them as the plain version's autograd graph has them.
+template <typename T>
+HD T select(bool c, T a, T b) { return c ? a : b; }
+HD float mmul(float m, float x) { return m * x; }
+HD double mmul(double m, double x) { return m * x; }
+HD float madd(float x, float c) { return x + c; }
+HD double madd(double x, double c) { return x + c; }
 
+// ---------------- the tape (the VJP kernel's reverse mode) ----------------
+// Adj<S> is a value and the index of the tape node that made it. Every
+// elementary operation on an Adj appends one node: the indices of its (at
+// most two) active operands and its local partials, the factors by which
+// torch's backward formula of that operation scales the output's gradient.
+// A reverse sweep over the nodes, last to first, then accumulates each
+// node's adjoint into its operands' adjoints, in the order torch's engine
+// runs the plain version's backward (highest sequence number first).
+//
+// Index >= 0: a node. The negative kinds record nothing, and fold as the
+// plain version (ops/tile.py) folds its Python constants and None:
+//   K_CONST  a constant of the model or a literal (a Python float there),
+//   K_ZERO   a structural zero (None there: x * 0, 0 / x),
+//   K_OPAQUE a value without a gradient that the plain version holds as a
+//            tensor (a mask, a select of constants): never folded.
+// The kinds depend on the model, not on the data, so every env of a model
+// records the same number of nodes (data-dependent choices record a node
+// either way: a select, a masked product, a dead safe_div denominator).
+constexpr int K_CONST = -1, K_ZERO = -2, K_OPAQUE = -3;
+constexpr int DIV_EDGE = 1 << 30;  // flag on p0: the adjoint is divided by w0
+constexpr int IDX_MASK = DIV_EDGE - 1;
+
+// node n of env e sits at n * B + e (node-major, env-minor: a warp's stores
+// coalesce); the adjoints follow the nodes in the same layout
 template <typename S>
-struct Dual {
-  S v, d;  // primal, tangent
-  Dual() = default;
-  HD Dual(S x) : v(x), d(S(0)) {}
-  HD Dual(S x, S dx) : v(x), d(dx) {}
-  HD Dual operator-() const { return Dual(-v, -d); }
-  friend HD Dual operator+(const Dual& a, const Dual& b) { return Dual(a.v + b.v, a.d + b.d); }
-  friend HD Dual operator+(const Dual& a, S b) { return Dual(a.v + b, a.d); }
-  friend HD Dual operator+(S a, const Dual& b) { return Dual(a + b.v, b.d); }
-  friend HD Dual operator-(const Dual& a, const Dual& b) { return Dual(a.v - b.v, a.d - b.d); }
-  friend HD Dual operator-(const Dual& a, S b) { return Dual(a.v - b, a.d); }
-  friend HD Dual operator-(S a, const Dual& b) { return Dual(a - b.v, -b.d); }
-  friend HD Dual operator*(const Dual& a, const Dual& b) {
-    return Dual(a.v * b.v, a.d * b.v + a.v * b.d);
-  }
-  friend HD Dual operator*(const Dual& a, S b) { return Dual(a.v * b, a.d * b); }
-  friend HD Dual operator*(S a, const Dual& b) { return Dual(a * b.v, a * b.d); }
-  friend HD Dual operator/(const Dual& a, const Dual& b) {
-    const S q = a.v / b.v;
-    return Dual(q, (a.d - q * b.d) / b.v);
-  }
-  friend HD Dual operator/(const Dual& a, S b) { return Dual(a.v / b, a.d / b); }
-  friend HD bool operator<(const Dual& a, const Dual& b) { return a.v < b.v; }
-  friend HD bool operator>(const Dual& a, const Dual& b) { return a.v > b.v; }
+struct alignas(sizeof(S) == 4 ? 16 : 8) Node {
+  int p0, p1;  // operands' node indices (-1: none), p0 may carry DIV_EDGE
+  S w0, w1;    // local partials
 };
 
-// max/min of two duals: the tangent is b' + w (a' - b'), w = 1, 0 or 0.5 at a
-// tie (or NaN), as torch's forward-mode formula writes it, so that it rounds
-// as torch.autograd.forward_ad does (a select rounds otherwise)
+// Per-thread recording context, reached by the operators without an
+// argument: a __shared__ slot per thread of the 32-thread block on the card,
+// a thread_local on the host.
+struct TapeCtx {
+  unsigned char* nodes;  // Node<S>[cap][B]; null: count only
+  unsigned char* adj;    // S[cap][B]
+  int64_t B;
+  int e, n, cap;
+};
+#ifdef __CUDACC__
+__shared__ TapeCtx tape_slots[32];
+#endif
+#ifndef __CUDA_ARCH__
+static thread_local TapeCtx tape_host;
+#endif
+HD TapeCtx& tape_ctx() {
+#ifdef __CUDA_ARCH__
+  return tape_slots[threadIdx.x];
+#else
+  return tape_host;
+#endif
+}
+
+// Tape traffic. The nodes are written once and read once, much later
+// (evict-first on the card: __stcs / __ldcs); the sweep reads an adjoint at
+// L2 (__ldcg), where the atomics that add into it are performed.
 template <typename S>
-HD Dual<S> tmax(Dual<S> a, Dual<S> b) {
-  const S w = a.v > b.v ? S(1) : (a.v < b.v ? S(0) : S(0.5));
-  return Dual<S>(tmax(a.v, b.v), b.d + w * (a.d - b.d));
+HD void store_stream(S* p, S x) {
+#ifdef __CUDA_ARCH__
+  __stcs(p, x);
+#else
+  *p = x;
+#endif
 }
 template <typename S>
-HD Dual<S> tmin(Dual<S> a, Dual<S> b) {
-  const S w = a.v < b.v ? S(1) : (a.v > b.v ? S(0) : S(0.5));
-  return Dual<S>(tmin(a.v, b.v), b.d + w * (a.d - b.d));
+HD void store_node(Node<S>* p, const Node<S>& r) {
+  int* i = reinterpret_cast<int*>(p);
+  S* w = reinterpret_cast<S*>(i + 2);
+  store_stream(i, r.p0);
+  store_stream(i + 1, r.p1);
+  store_stream(w, r.w0);
+  store_stream(w + 1, r.w1);
 }
 template <typename S>
-HD Dual<S> t_sin(Dual<S> x) { return Dual<S>(t_sin(x.v), x.d * t_cos(x.v)); }
+HD Node<S> load_node(const Node<S>* p) {
+  const int* i = reinterpret_cast<const int*>(p);
+  const S* w = reinterpret_cast<const S*>(i + 2);
+#ifdef __CUDA_ARCH__
+  return Node<S>{__ldcs(i), __ldcs(i + 1), __ldcs(w), __ldcs(w + 1)};
+#else
+  return *p;
+#endif
+}
 template <typename S>
-HD Dual<S> t_cos(Dual<S> x) { return Dual<S>(t_cos(x.v), x.d * (-t_sin(x.v))); }
+HD S load_adj(const S* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+// adj += c, performed where the sweep's loads read it (a reduction at L2 on
+// the card, which the thread does not wait for)
 template <typename S>
-HD Dual<S> t_sqrt(Dual<S> x) {
+HD void add_adj(S* p, S c) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, c);
+#else
+  *p = *p + c;
+#endif
+}
+
+// Append a node; past the capacity it is counted and not stored.
+template <typename S>
+HD int tape_rec(int p0, S w0, int p1, S w1) {
+  TapeCtx& t = tape_ctx();
+  const int n = t.n++;
+  if (t.nodes != nullptr && n < t.cap) {
+    const int64_t o = (int64_t)n * t.B + t.e;
+    store_node(reinterpret_cast<Node<S>*>(t.nodes) + o, Node<S>{p0, p1, w0, w1});
+    store_stream(reinterpret_cast<S*>(t.adj) + o, S(0));
+  }
+  return n;
+}
+
+template <typename S>
+struct Adj {
+  S v;  // value, bit for bit kernel 1's
+  int i;
+  Adj() = default;
+  HD Adj(S x) : v(x), i(K_CONST) {}
+  HD Adj(S x, int idx) : v(x), i(idx) {}
+};
+
+// The operators below take their operands by value (8 bytes in float32).
+
+template <typename S>
+HD bool zero_(Adj<S> a) { return a.i == K_ZERO || (a.i == K_CONST && a.v == S(0)); }
+template <typename S>
+HD bool one_(Adj<S> a) { return a.i == K_CONST && a.v == S(1); }
+
+// the value `val` of an operation on a and b with partials wa, wb: a node
+// over the active operands, else a constant (opaque if either is)
+template <typename S>
+HD Adj<S> link(S val, Adj<S> a, S wa, Adj<S> b, S wb, int aflag = 0) {
+  if (a.i >= 0) return Adj<S>(val, tape_rec<S>(a.i | aflag, wa, b.i >= 0 ? b.i : -1, wb));
+  if (b.i >= 0) return Adj<S>(val, tape_rec<S>(b.i, wb, -1, S(0)));
+  return Adj<S>(val, (a.i == K_OPAQUE || b.i == K_OPAQUE) ? K_OPAQUE : K_CONST);
+}
+template <typename S>
+HD Adj<S> link1(S val, Adj<S> a, S wa, int aflag = 0) {
+  if (a.i >= 0) return Adj<S>(val, tape_rec<S>(a.i | aflag, wa, -1, S(0)));
+  return Adj<S>(val, a.i == K_OPAQUE ? K_OPAQUE : K_CONST);
+}
+// as link, for partials that torch masks to an exact 0 (no edge then); a
+// node is recorded whenever an operand is active
+template <typename S>
+HD Adj<S> link_masked(S val, Adj<S> a, S wa, Adj<S> b, S wb) {
+  if (a.i < 0 && b.i < 0) return link(val, a, wa, b, wb);
+  const bool ea = a.i >= 0 && wa != S(0), eb = b.i >= 0 && wb != S(0);
+  if (ea) return Adj<S>(val, tape_rec<S>(a.i, wa, eb ? b.i : -1, wb));
+  return Adj<S>(val, tape_rec<S>(eb ? b.i : -1, wb, -1, S(0)));
+}
+
+// torch's backward formulas: add and sub pass the gradient (negated for the
+// subtrahend), mul scales it by the other operand, div divides it by the
+// denominator and scales the denominator's by -(a / b) / b
+template <typename S>
+HD Adj<S> operator+(Adj<S> a, Adj<S> b) {
+  const S val = a.v + b.v;
+  if (zero_(a)) return Adj<S>(val, zero_(b) ? K_ZERO : b.i);
+  if (zero_(b)) return Adj<S>(val, a.i);
+  return link(val, a, S(1), b, S(1));
+}
+template <typename S>
+HD Adj<S> operator-(Adj<S> a) {
+  return link1(-a.v, a, S(-1));
+}
+template <typename S>
+HD Adj<S> operator-(Adj<S> a, Adj<S> b) {
+  const S val = a.v - b.v;
+  if (zero_(b)) return Adj<S>(val, zero_(a) ? K_ZERO : a.i);
+  if (zero_(a)) return link1(val, b, S(-1));
+  return link(val, a, S(1), b, S(-1));
+}
+template <typename S>
+HD Adj<S> operator*(Adj<S> a, Adj<S> b) {
+  const S val = a.v * b.v;
+  if (zero_(a) || zero_(b)) return Adj<S>(val, K_ZERO);
+  if (one_(a)) return Adj<S>(val, b.i);
+  if (one_(b)) return Adj<S>(val, a.i);
+  return link(val, a, b.v, b, a.v);
+}
+template <typename S>
+HD Adj<S> operator/(Adj<S> a, Adj<S> b) {
+  const S val = a.v / b.v;
+  if (zero_(a)) return Adj<S>(val, K_ZERO);
+  return link(val, a, b.v, b, -(val / b.v), DIV_EDGE);
+}
+template <typename S> HD Adj<S> operator+(Adj<S> a, S b) { return a + Adj<S>(b); }
+template <typename S> HD Adj<S> operator+(S a, Adj<S> b) { return Adj<S>(a) + b; }
+template <typename S> HD Adj<S> operator-(Adj<S> a, S b) { return a - Adj<S>(b); }
+template <typename S> HD Adj<S> operator-(S a, Adj<S> b) { return Adj<S>(a) - b; }
+template <typename S> HD Adj<S> operator*(Adj<S> a, S b) { return a * Adj<S>(b); }
+template <typename S> HD Adj<S> operator*(S a, Adj<S> b) { return Adj<S>(a) * b; }
+template <typename S> HD Adj<S> operator/(Adj<S> a, S b) { return a / Adj<S>(b); }
+template <typename S>
+HD bool operator<(Adj<S> a, Adj<S> b) { return a.v < b.v; }
+template <typename S>
+HD bool operator>(Adj<S> a, Adj<S> b) { return a.v > b.v; }
+
+// maximum / minimum: the gradient goes to the larger (smaller) operand,
+// halved at a tie, and to both when one is NaN; an operand that gets
+// none has no edge (torch masks it to an exact 0)
+template <typename S>
+HD Adj<S> tmax(Adj<S> a, Adj<S> b) {
+  const bool tie = a.v == b.v;
+  const S wa = tie ? S(0.5) : (a.v < b.v ? S(0) : S(1));
+  const S wb = tie ? S(0.5) : (a.v > b.v ? S(0) : S(1));
+  return link_masked(tmax(a.v, b.v), a, wa, b, wb);
+}
+template <typename S>
+HD Adj<S> tmin(Adj<S> a, Adj<S> b) {
+  const bool tie = a.v == b.v;
+  const S wa = tie ? S(0.5) : (a.v > b.v ? S(0) : S(1));
+  const S wb = tie ? S(0.5) : (a.v < b.v ? S(0) : S(1));
+  return link_masked(tmin(a.v, b.v), a, wa, b, wb);
+}
+template <typename S>
+HD Adj<S> t_sin(Adj<S> x) { return link1(t_sin(x.v), x, t_cos(x.v)); }
+template <typename S>
+HD Adj<S> t_cos(Adj<S> x) { return link1(t_cos(x.v), x, -t_sin(x.v)); }
+template <typename S>
+HD Adj<S> t_sqrt(Adj<S> x) {
   const S r = t_sqrt(x.v);
-  return Dual<S>(r, x.d / (S(2) * r));
+  return link1(r, x, S(2) * r, DIV_EDGE);  // torch: grad / (2 result)
 }
 template <typename S>
-HD Dual<S> t_rsqrt(Dual<S> x) {
+HD Adj<S> t_rsqrt(Adj<S> x) {
   const S r = t_rsqrt(x.v);
-  return Dual<S>(r, (S(-0.5) * ((r * r) * r)) * x.d);
+  // torch: -0.5 grad result^3, result^3 = (r r) r; the factor -0.5 is exact
+  return link1(r, x, ((r * r) * r) * S(-0.5));
 }
 template <typename S>
-HD Dual<S> t_abs(Dual<S> x) {
-  return Dual<S>(t_abs(x.v), x.v > S(0) ? x.d : (x.v < S(0) ? -x.d : S(0)));
+HD Adj<S> t_abs(Adj<S> x) {
+  return link1(t_abs(x.v), x, x.v > S(0) ? S(1) : (x.v < S(0) ? S(-1) : S(0)));
 }
 template <typename S>
-HD bool t_finite(Dual<S> x) { return t_finite(x.v); }
+HD bool t_finite(Adj<S> x) { return t_finite(x.v); }
+// a structural zero: only a constant may be skipped (an active node whose
+// value is 0 still carries partials)
 template <typename S>
-HD bool is_zero(Dual<S> x) { return x.v == S(0) && x.d == S(0); }
+HD bool is_zero(Adj<S> x) { return zero_(x); }
 template <typename S>
-HD S primal(Dual<S> x) { return x.v; }
+HD S primal(Adj<S> x) { return x.v; }
+// the plain version's float32 safe_div, torch.where(dead, 0, n / where(dead,
+// 1, d)): the division is recorded whether or not the denominator is dead
 template <typename S>
-HD Dual<S> safe_div(Dual<S> n, Dual<S> d) {
-  if (sizeof(S) == 4 && t_abs(d.v) <= S(1e-20)) return Dual<S>(S(0));
-  return n / d;
+HD Adj<S> safe_div(Adj<S> n, Adj<S> d) {
+  if (sizeof(S) == 8) return n / d;
+  const bool dead = t_abs(d.v) <= S(1e-20);
+  if (zero_(n)) return Adj<S>(safe_div(n.v, d.v), K_ZERO);
+  if (d.i == K_CONST || d.i == K_ZERO) return dead ? Adj<S>(S(0), K_ZERO) : n / d;
+  const Adj<S> q = n / select(dead, Adj<S>(S(1)), d);
+  return select(dead, Adj<S>(S(0)), q);
+}
+template <typename S>
+HD Adj<S> select(bool c, Adj<S> a, Adj<S> b) {
+  Adj<S> x = c ? a : b;
+  if (x.i >= 0) return Adj<S>(x.v, tape_rec<S>(x.i, S(1), -1, S(0)));
+  if (a.i >= 0 || b.i >= 0) return Adj<S>(x.v, tape_rec<S>(-1, S(0), -1, S(0)));
+  return Adj<S>(x.v, K_OPAQUE);
+}
+template <typename S>
+HD Adj<S> mmul(S m, Adj<S> x) {
+  if (zero_(x)) return Adj<S>(m * x.v, K_ZERO);
+  return x.i >= 0 ? Adj<S>(m * x.v, tape_rec<S>(x.i, m, -1, S(0))) : Adj<S>(m * x.v, K_OPAQUE);
+}
+template <typename S>
+HD Adj<S> madd(Adj<S> x, S c) {
+  return x.i >= 0 ? Adj<S>(x.v + c, tape_rec<S>(x.i, S(1), -1, S(0))) : Adj<S>(x.v + c, K_OPAQUE);
+}
+// the gradient attachment's straight-through output: value `best`, the
+// gradient of g where ok (torch.where(ok, best + (g - g.detach()), best))
+template <typename S>
+HD Adj<S> straight_through(S best, bool ok, Adj<S> g) {
+  if (g.i < 0) return Adj<S>(best, K_OPAQUE);
+  return Adj<S>(best, tape_rec<S>(ok ? g.i : -1, S(1), -1, S(0)));
 }
 
 // val<U>(x): x as a U, where U is x's type or its primal type (the detached
-// stages of the LCP read dual arrays as primal values)
+// stages of the LCP read Adj arrays as primal values)
 template <typename U>
 struct Val {
   template <typename X>
   static HD U of(const X& x) { return primal(x); }
 };
 template <typename S>
-struct Val<Dual<S>> {
-  static HD Dual<S> of(const Dual<S>& x) { return x; }
+struct Val<Adj<S>> {
+  static HD Adj<S> of(const Adj<S>& x) { return x; }
 };
 template <typename U, typename X>
 HD U val(const X& x) { return Val<U>::of(x); }
@@ -379,19 +614,25 @@ HD void quat_to_mat(const V* q, V* R) {
   R[8] = V(1) - (xx + yy) * V(2);
 }
 
-// R^3 -> unit quaternion, half-angle convention, Taylor branch near 0
+// R^3 -> unit quaternion, half-angle convention, Taylor branch near 0. Both
+// branches are evaluated and one is selected, in the plain version's order
+// (ops/tile.py _cos_sqrt_t, _sinc_t2_t), so that the VJP's tape records its
+// graph (and the same number of nodes in every env).
 template <typename V>
 HD void quat_exp(const V* v, V* out) {
   const V h2 = dot3(v, v) * V(0.25);
-  V w, sinc;
-  if (h2 < V(1e-8)) {
-    w = (V(1) - h2 / V(2)) + (h2 * h2) / V(24);
-    sinc = (V(1) - h2 / V(6)) + (h2 * h2) / V(120);
-  } else {
-    const V r = t_sqrt(h2);
-    w = t_cos(r);
-    sinc = t_sin(r) / r;
-  }
+  const bool small = h2 < V(1e-8);
+  const V safe = select(small, V(1), h2);
+  V t = V(1) - h2 / V(2);
+  V h4 = h2 * h2;
+  const V w_taylor = t + h4 / V(24);
+  const V w = select(small, w_taylor, t_cos(t_sqrt(safe)));
+  const V r = t_sqrt(select(small, V(1), h2));
+  t = V(1) - h2 / V(6);
+  h4 = h2 * h2;
+  const V s_taylor = t + h4 / V(120);
+  const V sin_r = t_sin(r);
+  const V sinc = select(small, s_taylor, sin_r / r);
   const V s = sinc * V(0.5);
   out[0] = w;
   for (int k = 0; k < 3; ++k) out[1 + k] = s * v[k];
@@ -436,7 +677,9 @@ struct Lcp {
     } else {
       c = tmax(cand, U(0));
     }
-    return valid[i] ? c : U(0);
+    // servo and joint-friction rows are always valid (the plain version
+    // returns them unselected)
+    return is_box(i) ? c : select(valid[i], c, U(0));
   }
 
   // out = J Minv J^T lam + cfm lam, matrix-free (primal)
@@ -469,8 +712,9 @@ struct Lcp {
   }
 
   // one active-set Woodbury pass from iterate lam (sim/tilestep.py
-  // one_pass). The active set comes from lam and carries no tangent; with
-  // U = V the pass is differentiated through J, b and M.
+  // one_pass). The active set comes from lam and carries no gradient; with
+  // U = V the pass is differentiated through J, b and M. The masks (Ff, fbm,
+  // pin) are tensors without a gradient in the plain version: mmul / madd.
   template <typename U>
   HD void one_pass(const V (*M)[MAX_NV], const S* lam, U* out) const {
     const S tol = S(1e-8);
@@ -509,29 +753,32 @@ struct Lcp {
       for (int c = 0; c < nv; ++c) Sm[a][c] = cfm * val<U>(M[a][c]);
     for (int i = 0; i < D; ++i) {
       U X[MAX_NV];
-      for (int j = 0; j < nv; ++j) X[j] = Ff[i] * val<U>(J[i][j]);
+      for (int j = 0; j < nv; ++j) X[j] = mmul(Ff[i], val<U>(J[i][j]));
       if (is_fr(i)) {
         const int n = fidx(i);
         const S coef = fbm[i] * Ff[n];
-        for (int j = 0; j < nv; ++j) X[j] = X[j] + coef * val<U>(J[n][j]);
+        for (int j = 0; j < nv; ++j) X[j] = X[j] + mmul(coef, val<U>(J[n][j]));
       }
       for (int a = 0; a < nv; ++a)
         for (int c = 0; c < nv; ++c) Sm[a][c] = Sm[a][c] + val<U>(J[i][a]) * X[c];
     }
-    // rhs_u = J^T (I+B) r with r = -F b
-    U r[MAX_D], rhs[MAX_NV], u[MAX_NV];
-    for (int i = 0; i < D; ++i) r[i] = Ff[i] * (-val<U>(b[i]));
-    for (int j = 0; j < nv; ++j) rhs[j] = U(0);
+    // rhs_u = J^T ((I+B) r + cfm pin) with r = -F b, all of (I+B) r first
+    // and then the sums, as the plain version creates them
+    U r[MAX_D], ibr[MAX_D], rhs[MAX_NV], u[MAX_NV];
+    for (int i = 0; i < D; ++i) r[i] = mmul(Ff[i], -val<U>(b[i]));
     for (int i = 0; i < D; ++i) {
       U t = r[i];
-      if (is_fr(i)) t = t + fbm[i] * r[fidx(i)];
-      if (is_box(i)) t = t + cfm * pin[i];
-      for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] + val<U>(J[i][j]) * t;
+      if (is_fr(i)) t = t + mmul(fbm[i], r[fidx(i)]);
+      if (is_box(i)) t = madd(t, cfm * pin[i]);
+      ibr[i] = t;
     }
+    for (int j = 0; j < nv; ++j) rhs[j] = U(0);
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] + val<U>(J[i][j]) * ibr[i];
     // Gaussian elimination without pivoting (S is unsymmetric when the
-    // friction-bound coupling is active); exact zeros below the diagonal are
-    // skipped as the plain version skips its structural zeros (a dual is
-    // skipped only when its tangent is zero too)
+    // friction-bound coupling is active); zeros below the diagonal are
+    // skipped as the plain version skips its structural zeros (an Adj only
+    // when it is a constant)
     for (int k = 0; k < nv - 1; ++k)
       for (int i = k + 1; i < nv; ++i) {
         if (is_zero(Sm[i][k])) continue;
@@ -549,13 +796,13 @@ struct Lcp {
     for (int i = 0; i < D; ++i) {
       U ju = U(0);
       for (int j = 0; j < nv; ++j) ju = ju + val<U>(J[i][j]) * u[j];
-      x[i] = Ff[i] * ((r[i] - Ff[i] * ju) / cfm);
+      x[i] = mmul(Ff[i], (r[i] - mmul(Ff[i], ju)) / cfm);
     }
     U lam_new[MAX_D];
     for (int i = 0; i < D; ++i) {
       U t = x[i];
-      if (is_fr(i)) t = t + fbm[i] * x[fidx(i)];
-      if (is_box(i)) t = t + pin[i];
+      if (is_fr(i)) t = t + mmul(fbm[i], x[fidx(i)]);
+      if (is_box(i)) t = madd(t, pin[i]);
       lam_new[i] = t;
     }
     for (int i = 0; i < D; ++i) out[i] = clip_row<U>(i, lam_new[i], lam_new);
@@ -579,7 +826,7 @@ HD void apply_impulse(const Lcp<V, S>& lcp, const V (*Minv)[MAX_NV], const V* v_
 }
 
 // One env's step from (q, v, tau) to (q_new, v_new), on values of type V.
-// GRAD (V = Dual<S> only) adds the probe pass and the differentiable
+// GRAD (V = Adj<S> only) adds the probe pass and the differentiable
 // Woodbury pass of the gradient attachment.
 template <typename V, typename S, bool GRAD>
 HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
@@ -971,7 +1218,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
     if constexpr (GRAD) {
       // ---------------- gradient attachment ----------------
       // probe pass at best (primal): envs where it is non-finite or drifts
-      // keep the value and get a zero tangent
+      // keep the value and get no gradient
       S probe[MAX_D];
       lcp.template one_pass<S>(M, best, probe);
       bool finite = true;
@@ -986,7 +1233,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
       for (int i = 0; i < D; ++i) cand[i] = ok ? best[i] : S(0);
       V lam_g[MAX_D];
       lcp.template one_pass<V>(M, cand, lam_g);
-      for (int i = 0; i < D; ++i) lam_g[i] = V(best[i], ok ? lam_g[i].d : S(0));
+      for (int i = 0; i < D; ++i) lam_g[i] = straight_through(best[i], ok, lam_g[i]);
       apply_impulse(lcp, Minv, v_star, lam_g, v_new);
     } else {
       apply_impulse(lcp, Minv, v_star, best, v_new);
@@ -1036,38 +1283,111 @@ HD void env_fwd(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
   for (int k = 0; k < nv; ++k) v_out[(int64_t)k * B + e] = vn[k];
 }
 
-// The VJP kernel's per-(env, direction) work: direction kd of the inputs
-// (q | v | tau) gets a unit tangent; the cotangent (gq, gv) dotted with the
-// output tangent is row kd of (dq | dv | dtau). Direction 0 also writes the
-// primal output when q_out is given.
+// The VJP kernel's per-env work: record env_step on Adj values (the K =
+// nq + 2 nv inputs are the tape's first K nodes), seed the adjoints of the
+// outputs with (gq, gv), sweep the tape from its last node to its first, and
+// read (dq | dv | dtau) from the K leaves. `status` gets the largest node
+// count of any env (atomic max) and, where an env needs more nodes than
+// `cap`, the overflow flag; that env then writes nothing. With tape == null
+// the launch only counts; with dq == null it records the tape and stops
+// (the recording's share of the time, chip_smoke.py phase 9). q_out / v_out,
+// when given, receive the recorded primal step, which is kernel 1's output
+// bit for bit.
+HD void note_count(int* status, int n, bool over) {
+#ifdef __CUDA_ARCH__
+  atomicMax(status, n);
+  if (over) atomicExch(status + 1, 1);
+#else
+  if (n > status[0]) status[0] = n;
+  if (over) status[1] = 1;
+#endif
+}
+
+// The reverse sweep over nodes count-1 .. K, SWEEP_CHUNK nodes at a time.
+// A chunk's records and adjoints are loaded together (independent loads,
+// one round trip per chunk); its nodes' contributions to nodes of the same
+// chunk are added in registers, the others into memory (add_adj), so no
+// node waits on a store. Every adjoint still receives its contributions in
+// the order torch's engine adds them, by decreasing consumer index: those
+// of later chunks (in memory, loaded with the chunk), then those of its own
+// chunk, in order.
+constexpr int SWEEP_CHUNK = 8;
+
+template <typename S>
+HD void sweep(const Node<S>* __restrict__ nodes, S* __restrict__ adj, int count, int K,
+              int64_t B, int e) {
+  for (int top = count - 1; top >= K; top -= SWEEP_CHUNK) {
+    const int lo = top - SWEEP_CHUNK + 1 > K ? top - SWEEP_CHUNK + 1 : K;
+    Node<S> r[SWEEP_CHUNK];
+    S acc[SWEEP_CHUNK];
+#pragma unroll
+    for (int j = 0; j < SWEEP_CHUNK; ++j)
+      if (lo + j <= top) {
+        r[j] = load_node(nodes + (lo + j) * B + e);
+        acc[j] = load_adj(adj + (lo + j) * B + e);
+      }
+#pragma unroll
+    for (int j = SWEEP_CHUNK - 1; j >= 0; --j) {
+      if (lo + j > top) continue;
+      const S a = acc[j];
+#pragma unroll
+      for (int edge = 0; edge < 2; ++edge) {
+        const int pe = edge == 0 ? r[j].p0 : r[j].p1;
+        if (pe < 0) continue;
+        const int p = pe & IDX_MASK;
+        const S c = edge == 0 ? ((pe & DIV_EDGE) ? a / r[j].w0 : a * r[j].w0) : a * r[j].w1;
+        if (p >= lo) {
+#pragma unroll
+          for (int k = 0; k < SWEEP_CHUNK; ++k)
+            if (k < j && p == lo + k) acc[k] = acc[k] + c;
+        } else {
+          add_adj(adj + p * B + e, c);
+        }
+      }
+    }
+  }
+}
+
 template <typename S>
 HD void env_vjp(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
                 const S* __restrict__ v_in, const S* __restrict__ tau_in,
                 const S* __restrict__ gq, const S* __restrict__ gv, S* __restrict__ dq,
                 S* __restrict__ dv, S* __restrict__ dtau, S* __restrict__ q_out,
-                S* __restrict__ v_out, int B, int e, int kd) {
-  using V = Dual<S>;
-  const int nq = I.nq, nv = I.nv;
+                S* __restrict__ v_out, unsigned char* tape, int* status, int B, int cap, int e) {
+  using V = Adj<S>;
+  const int nq = I.nq, nv = I.nv, K = nq + 2 * nv;
+  TapeCtx& t = tape_ctx();
+  t.nodes = tape;
+  t.adj = tape == nullptr ? nullptr : tape + (int64_t)cap * B * sizeof(Node<S>);
+  t.B = B;
+  t.e = e;
+  t.n = 0;
+  t.cap = cap;
   V q[MAX_NQ], v[MAX_NV], tau[MAX_NV], qn[MAX_NQ], vn[MAX_NV];
-  for (int k = 0; k < nq; ++k) q[k] = V(q_in[(int64_t)k * B + e], k == kd ? S(1) : S(0));
-  for (int k = 0; k < nv; ++k) {
-    v[k] = V(v_in[(int64_t)k * B + e], nq + k == kd ? S(1) : S(0));
-    tau[k] = V(tau_in[(int64_t)k * B + e], nq + nv + k == kd ? S(1) : S(0));
-  }
+  for (int k = 0; k < nq; ++k) q[k] = V(q_in[(int64_t)k * B + e], tape_rec<S>(-1, S(0), -1, S(0)));
+  for (int k = 0; k < nv; ++k) v[k] = V(v_in[(int64_t)k * B + e], tape_rec<S>(-1, S(0), -1, S(0)));
+  for (int k = 0; k < nv; ++k)
+    tau[k] = V(tau_in[(int64_t)k * B + e], tape_rec<S>(-1, S(0), -1, S(0)));
   env_step<V, S, true>(I, F, q, v, tau, qn, vn);
-  S acc = S(0);
-  for (int k = 0; k < nq; ++k) acc = acc + gq[(int64_t)k * B + e] * qn[k].d;
-  for (int k = 0; k < nv; ++k) acc = acc + gv[(int64_t)k * B + e] * vn[k].d;
-  if (kd < nq)
-    dq[(int64_t)kd * B + e] = acc;
-  else if (kd < nq + nv)
-    dv[(int64_t)(kd - nq) * B + e] = acc;
-  else
-    dtau[(int64_t)(kd - nq - nv) * B + e] = acc;
-  if (q_out != nullptr && kd == 0) {
+  const int count = t.n;
+  note_count(status, count, tape != nullptr && count > cap);
+  if (tape == nullptr || count > cap) return;
+  if (q_out != nullptr) {
     for (int k = 0; k < nq; ++k) q_out[(int64_t)k * B + e] = qn[k].v;
     for (int k = 0; k < nv; ++k) v_out[(int64_t)k * B + e] = vn[k].v;
   }
+  if (dq == nullptr) return;
+  const Node<S>* __restrict__ nodes = reinterpret_cast<const Node<S>*>(t.nodes);
+  S* __restrict__ adj = reinterpret_cast<S*>(t.adj);
+  const int64_t Bl = B;
+  for (int k = 0; k < nq; ++k)
+    if (qn[k].i >= 0) add_adj(adj + qn[k].i * Bl + e, gq[k * Bl + e]);
+  for (int k = 0; k < nv; ++k)
+    if (vn[k].i >= 0) add_adj(adj + vn[k].i * Bl + e, gv[k * Bl + e]);
+  sweep(nodes, adj, count, K, Bl, e);
+  for (int k = 0; k < nq; ++k) dq[k * Bl + e] = load_adj(adj + k * Bl + e);
+  for (int k = 0; k < nv; ++k) dv[k * Bl + e] = load_adj(adj + (nq + k) * Bl + e);
+  for (int k = 0; k < nv; ++k) dtau[k * Bl + e] = load_adj(adj + (nq + nv + k) * Bl + e);
 }
 
 #ifdef __CUDACC__
@@ -1081,27 +1401,23 @@ __global__ void __launch_bounds__(32) fused_step_kernel(
   env_fwd<S>(*di, *df, q, v, tau, qo, vo, B, e);
 }
 
-constexpr int VJP_THREADS = 64;
-
 template <typename S>
-__global__ void __launch_bounds__(VJP_THREADS) fused_step_vjp_kernel(
+__global__ void __launch_bounds__(32) fused_step_vjp_kernel(
     const DescI* __restrict__ di, const DescF<S>* __restrict__ df, const S* __restrict__ q,
     const S* __restrict__ v, const S* __restrict__ tau, const S* __restrict__ gq,
     const S* __restrict__ gv, S* __restrict__ dq, S* __restrict__ dv, S* __restrict__ dtau,
-    S* __restrict__ qo, S* __restrict__ vo, int B, int K) {
-  // envs fastest: a warp reads neighbouring envs of one direction
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)B * K) return;
-  env_vjp<S>(*di, *df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, B, (int)(t % B), (int)(t / B));
+    S* __restrict__ qo, S* __restrict__ vo, unsigned char* tape, int* status, int B, int cap) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B) return;
+  env_vjp<S>(*di, *df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status, B, cap, e);
 }
 
+// one warp per block: B = 4096 spreads over 128 SMs
 template <typename S>
 static int launch(const void* di, const void* df, const void* q, const void* v, const void* tau,
                   void* qo, void* vo, int B, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 32;  // one warp per block: B = 4096 spreads over 128 SMs
-  const int blocks = (B + threads - 1) / threads;
-  fused_step_kernel<S><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  fused_step_kernel<S><<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
       (const DescI*)di, (const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau, (S*)qo,
       (S*)vo, B);
   return (int)cudaGetLastError();
@@ -1110,13 +1426,13 @@ static int launch(const void* di, const void* df, const void* q, const void* v, 
 template <typename S>
 static int launch_vjp(const void* di, const void* df, const void* q, const void* v,
                       const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                      void* dtau, void* qo, void* vo, int B, int K, void* stream) {
-  if (B <= 0 || K <= 0) return 0;
-  const int64_t n = (int64_t)B * K;
-  const int blocks = (int)((n + VJP_THREADS - 1) / VJP_THREADS);
-  fused_step_vjp_kernel<S><<<blocks, VJP_THREADS, 0, (cudaStream_t)stream>>>(
+                      void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
+                      void* stream) {
+  if (B <= 0) return 0;
+  fused_step_vjp_kernel<S><<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
       (const DescI*)di, (const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau,
-      (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo, (S*)vo, B, K);
+      (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo, (S*)vo,
+      (unsigned char*)tape, (int*)status, B, cap);
   return (int)cudaGetLastError();
 }
 #else
@@ -1134,20 +1450,32 @@ static int launch(const void* di, const void* df, const void* q, const void* v, 
 template <typename S>
 static int launch_vjp(const void* di, const void* df, const void* q, const void* v,
                       const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                      void* dtau, void* qo, void* vo, int B, int K, void*) {
-  for (int k = 0; k < K; ++k)
-    for (int e = 0; e < B; ++e)
-      env_vjp<S>(*(const DescI*)di, *(const DescF<S>*)df, (const S*)q, (const S*)v,
-                 (const S*)tau, (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo,
-                 (S*)vo, B, e, k);
+                      void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
+                      void*) {
+  for (int e = 0; e < B; ++e)
+    env_vjp<S>(*(const DescI*)di, *(const DescF<S>*)df, (const S*)q, (const S*)v,
+               (const S*)tau, (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo,
+               (S*)vo, (unsigned char*)tape, (int*)status, B, cap, e);
   return 0;
 }
 #endif
 
 }  // namespace fused
 
+// Built in three parts at once (ops/_build.py reads KERNEL_PARTS and
+// compiles part i with -DKERNEL_PART=i): 0, the step kernels and the layout;
+// 1, the float32 VJP; 2, the float64 VJP. Without KERNEL_PART (the host
+// build), everything.
+#define KERNEL_PARTS 3
+#if !defined(KERNEL_PART)
+#define PART(i) 1
+#else
+#define PART(i) (KERNEL_PART == (i))
+#endif
+
 extern "C" {
 
+#if PART(0)
 // sizes the Python packer checks its layout against
 void fused_step_layout(int* out) {
   out[0] = (int)(sizeof(fused::DescI) / sizeof(int));
@@ -1160,6 +1488,8 @@ void fused_step_layout(int* out) {
   out[7] = fused::MAX_NC;
   out[8] = fused::MAX_LIM;
   out[9] = fused::MAX_D;
+  out[10] = (int)sizeof(fused::Node<float>);
+  out[11] = (int)sizeof(fused::Node<double>);
 }
 
 int fused_step_f32(const void* di, const void* df, const void* q, const void* v,
@@ -1171,19 +1501,32 @@ int fused_step_f64(const void* di, const void* df, const void* q, const void* v,
                    const void* tau, void* qo, void* vo, int B, void* stream) {
   return fused::launch<double>(di, df, q, v, tau, qo, vo, B, stream);
 }
+#endif
 
-// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau); K = nq + 2 nv. qo and
-// vo may be null; when given they receive the primal step (q', v').
+// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau), one thread per env.
+// tape: cap * B * (sizeof(Node<S>) + sizeof(S)) bytes of device memory (null:
+// count only, nothing else written); status: two zeroed ints, [the largest
+// node count of any env, 1 if an env needed more than cap]. qo and vo may be
+// null; when given they receive the primal step (q', v'). dq null: record
+// the tape only, and write no gradient.
+#if PART(1)
 int fused_step_vjp_f32(const void* di, const void* df, const void* q, const void* v,
                        const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                       void* dtau, void* qo, void* vo, int B, int K, void* stream) {
-  return fused::launch_vjp<float>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, B, K, stream);
+                       void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
+                       void* stream) {
+  return fused::launch_vjp<float>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status,
+                                  B, cap, stream);
 }
+#endif
 
+#if PART(2)
 int fused_step_vjp_f64(const void* di, const void* df, const void* q, const void* v,
                        const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                       void* dtau, void* qo, void* vo, int B, int K, void* stream) {
-  return fused::launch_vjp<double>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, B, K, stream);
+                       void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
+                       void* stream) {
+  return fused::launch_vjp<double>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status,
+                                   B, cap, stream);
 }
+#endif
 
 }  // extern "C"

@@ -23,8 +23,11 @@
 // accumulates in float64, as _jacobi does.
 //
 // Design: one block per env. The env's A is loaded once, coalesced, into
-// shared memory (D <= MAX_D = 64, at most 32 KB of doubles) with an odd row
-// stride to spread the banks; one thread per row computes its dot product
+// dynamic shared memory with an odd row stride to spread the banks. Its
+// size, D (D | 1) + 5 D values, caps D at what the card's opt-in shared
+// memory per block holds (227 KB on the H100: D <= 167 in float64, 238 in
+// float32; jacobi_sweeps_max_d); above 48 KB the launcher opts in with
+// cudaFuncSetAttribute. Threads loop over rows, so any D up to the cap runs; one thread per row computes its dot product
 // over the shared A and the shared lam, and barriers separate reading the
 // old lam from writing the new one. What bounds it on the H100: bytes. A
 // (B, D, D) matrix is read once (28.9 MB at B = 4096, D = 42 in float32)
@@ -56,7 +59,6 @@
 
 namespace sweeps {
 
-constexpr int MAX_D = 64;
 constexpr int THREADS = 64;
 
 // torch.maximum / torch.minimum semantics (a NaN operand propagates)
@@ -130,9 +132,13 @@ HD void env_sweeps(const S* A, const S* b, const S* lo, const S* hi, const S* mu
   for (int i = tid; i < D; i += nt) lam_out[i] = lam[i];
 }
 
-template <typename S>
-HD int scratch_elems(int D) {
-  return D * (D | 1) + 5 * D;
+HD int scratch_elems(int D) { return D * (D | 1) + 5 * D; }
+
+// the largest D whose scratch, `elem` bytes per value, fits `limit` bytes
+inline int max_rows(int elem, long long limit) {
+  int D = 0;
+  while ((long long)elem * scratch_elems(D + 1) <= limit) ++D;
+  return D;
 }
 
 #ifdef __CUDACC__
@@ -148,12 +154,26 @@ __global__ void __launch_bounds__(THREADS) jacobi_sweeps_kernel(
                 lam + e * D, D, iters, sh, threadIdx.x, blockDim.x);
 }
 
+// the current device's opt-in shared memory per block, in bytes
+inline long long smem_limit() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
 template <typename S>
 static int launch(const void* A, const void* b, const void* lo, const void* hi, const void* mu,
                   const void* fidx, void* lam, int B, int D, int iters, void* stream) {
   if (B <= 0 || D <= 0) return 0;
-  if (D > MAX_D) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(S) * (size_t)scratch_elems<S>(D);  // <= 35 KB: no opt-in needed
+  const size_t smem = sizeof(S) * (size_t)scratch_elems(D);
+  if ((long long)smem > smem_limit()) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default, opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_sweeps_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   jacobi_sweeps_kernel<S><<<B, THREADS, smem, (cudaStream_t)stream>>>(
       (const S*)A, (const S*)b, (const S*)lo, (const S*)hi, (const S*)mu,
       (const int64_t*)fidx, (S*)lam, D, iters);
@@ -163,8 +183,7 @@ static int launch(const void* A, const void* b, const void* lo, const void* hi, 
 template <typename S>
 static int launch(const void* A, const void* b, const void* lo, const void* hi, const void* mu,
                   const void* fidx, void* lam, int B, int D, int iters, void*) {
-  if (D > MAX_D) return 1;
-  std::vector<S> sh(scratch_elems<S>(D > 0 ? D : 1));
+  std::vector<S> sh(scratch_elems(D > 0 ? D : 1));
   for (int64_t e = 0; e < B; ++e)
     env_sweeps<S>((const S*)A + e * D * D, (const S*)b + e * D, (const S*)lo + e * D,
                   (const S*)hi + e * D, (const S*)mu + e * D, (const int64_t*)fidx,
@@ -177,7 +196,15 @@ static int launch(const void* A, const void* b, const void* lo, const void* hi, 
 
 extern "C" {
 
-int jacobi_sweeps_max_d() { return sweeps::MAX_D; }
+// the largest D the kernel takes for values of `elem_bytes` bytes (the host
+// build has no cap)
+int jacobi_sweeps_max_d(int elem_bytes) {
+#ifdef __CUDACC__
+  return sweeps::max_rows(elem_bytes, sweeps::smem_limit());
+#else
+  return elem_bytes > 0 ? 1 << 30 : 0;
+#endif
+}
 
 // lam (B, D) = the sweeps of the boxed LCP (A (B, D, D), b/lo/hi/mu (B, D),
 // fidx (D,) int64); all contiguous. Returns a CUDA error code (0 = launched).

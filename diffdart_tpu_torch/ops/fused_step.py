@@ -9,12 +9,13 @@ Counterpart of diffdart_tpu/ops/pallas_step.py. The TPU lays envs out as
 
 Gradients: on CUDA, a call with grad enabled and an input that requires
 grad goes through FusedStepFn, whose backward is the VJP kernel (port of
-`_bwd_kernel`, in the same .cu); on the CPU autograd runs through the
-plain version. The kernels cover the plain version's whole subset
-(REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL joints; capsule /
-sphere / box vs fixed-plane contacts; joint-limit, servo and joint-friction
-rows) within the size caps below; a CUDA call for a model over a cap raises
-NotImplementedError.
+`_bwd_kernel`, in the same .cu: reverse mode on a tape that each env's
+thread records, sized once per model and dtype by a counting launch); on
+the CPU autograd runs through the plain version. The kernels cover the
+plain version's whole subset (REVOLUTE / PRISMATIC / PLANAR / WELD / FREE /
+BALL joints; capsule / sphere / box vs fixed-plane contacts; joint-limit,
+servo and joint-friction rows) within the size caps below; a CUDA call for
+a model over a cap raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,6 +43,9 @@ from diffdart_tpu_torch.sim.tilestep import (
 
 # size caps compiled into the kernel (fused_step.cu); checked at load time
 MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D = 16, 16, 16, 16, 32, 16, 64
+# bytes of one tape node (Node<S>: two int32 operand indices, two partials)
+# and of its adjoint, per dtype; checked at load time
+NODE_BYTES = {torch.float32: 16, torch.float64: 24}
 
 # descriptor layouts, in the field order of DescI / DescF<T>
 _I_LAYOUT = [
@@ -160,11 +164,13 @@ def _load(kind: str) -> ctypes.CDLL:
     for name in ("fused_step_f32", "fused_step_f64"):
         _build.declare(getattr(lib, name), 7, 1)
     for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
-        _build.declare(getattr(lib, name), 12, 2)
+        _build.declare(getattr(lib, name), 14, 2)
     want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
-            MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D]
-    buf = (ctypes.c_int * 10)()
-    lib.fused_step_layout(buf)  # [DescI ints, DescF<float>, DescF<double>, the caps]
+            MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D,
+            NODE_BYTES[torch.float32], NODE_BYTES[torch.float64]]
+    buf = (ctypes.c_int * 12)()
+    # [DescI ints, DescF<float>, DescF<double>, the caps, Node<float>, Node<double>]
+    lib.fused_step_layout(buf)
     got = list(buf)
     if got != want:
         raise RuntimeError(f"fused_step descriptor layout mismatch: kernel {got}, packer {want}")
@@ -200,34 +206,113 @@ class _FusedStepKernel:
         return qo, vo
 
 
+def tape_bytes(dtype, cap: int, B: int) -> int:
+    """Bytes of the VJP kernel's tape: cap nodes and their adjoints per env."""
+    return cap * B * (NODE_BYTES[dtype] + torch.finfo(dtype).bits // 8)
+
+
+def tape_capacity(nodes: int) -> int:
+    """Tape capacity for a model whose envs record `nodes` nodes. Every env
+    of a model records the same number (fused_step.cu, the node kinds); the
+    margin covers an env whose state is not finite, where a constant's value
+    may change a fold. An env that still needs more makes the launch raise."""
+    return nodes + nodes // 16 + 256
+
+
+def check_tape(status, cap: int):
+    """Raise if a VJP launch that wrote `status` (a (2,) int32 tensor: the
+    largest node count of an env, the overflow flag) overflowed a tape of
+    `cap` nodes per env. Reading it waits for the launch."""
+    need, over = status.tolist()
+    if over:
+        raise RuntimeError(f"fused_step_vjp: tape overflow: an env records {need} nodes, the "
+                           f"tape holds {cap}")
+
+
+class TapeStatus:
+    """The overflow status that the VJP launches of one backward pass
+    share: each launch writes it, and one check_tape at the end of the pass
+    reads it, so the host waits for the card once per pass rather than
+    after every launch."""
+
+    def __init__(self):
+        self.tensor, self.cap = None, 0
+
+    def take(self, device, cap: int):
+        """The status tensor for the next launch (zeroed at the first launch
+        of a pass)."""
+        if self.tensor is None:
+            self.tensor = torch.zeros(2, dtype=torch.int32, device=device)
+        self.cap = cap
+        return self.tensor
+
+    def check(self):
+        """check_tape on what the pass's launches wrote; the next pass starts
+        from zero."""
+        status, self.tensor = self.tensor, None
+        if status is not None:
+            check_tape(status, self.cap)
+
+
 class _FusedStepVjpKernel:
     """Wrapper of the VJP kernel: (dq, dv, dtau) = (gq, gv) . d(q', v') /
-    d(q, v, tau), with B (nq + 2 nv) threads. With primal=True it also
-    returns the step (q', v') that the dual run computed. `launches` counts
-    kernel launches, and nothing else."""
+    d(q, v, tau), one thread per env, each recording its step on a tape of
+    `cap` nodes (tape_capacity) and sweeping it in reverse. With
+    primal=True it also returns the step (q', v') that the recording
+    computed. `status`, a zeroed (2,) int32 tensor that several launches may
+    share, receives the overflow status, which the caller then checks
+    (check_tape); without it the call checks its own, which waits for the
+    launch. `launches` counts launches that record and sweep, and nothing
+    else; `count_launches` the launches that only count nodes (tape_nodes,
+    once per model and dtype)."""
 
     name = "fused_step_vjp"
 
     def __init__(self):
         self.launches = 0
+        self.count_launches = 0
 
-    def __call__(self, desc_i, desc_f, q, v, tau, gq, gv, primal=False):
+    @staticmethod
+    def _fn(dtype):
+        lib = _load("cuda")
+        return lib.fused_step_vjp_f32 if dtype == torch.float32 else lib.fused_step_vjp_f64
+
+    def tape_nodes(self, desc_i, desc_f, q, v, tau):
+        """Nodes that one env of this model records: a launch over the first
+        env that counts and writes nothing else."""
+        one = [x[:, :1].contiguous() for x in (q, v, tau)]
+        status = torch.zeros(2, dtype=torch.int32, device=q.device)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = self._fn(q.dtype)(*(_ptr(x) for x in (desc_i, desc_f, *one)), *([None] * 8),
+                                    status.data_ptr(), 1, 0, stream)
+        if err:
+            raise RuntimeError(f"fused_step_vjp counting launch failed: CUDA error {err}")
+        self.count_launches += 1
+        return int(status[0].item())
+
+    def __call__(self, desc_i, desc_f, q, v, tau, gq, gv, cap, primal=False, status=None):
         for g, x, name in ((gq, q, "gq"), (gv, v, "gv")):
             if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
                 raise ValueError(f"fused_step_vjp: {name} must be a contiguous {x.dtype} tensor of "
                                  f"shape {tuple(x.shape)} on {x.device}")
-        lib = _load("cuda")
-        fn = lib.fused_step_vjp_f32 if q.dtype == torch.float32 else lib.fused_step_vjp_f64
+        fn = self._fn(q.dtype)
         dq, dv, dtau = torch.empty_like(q), torch.empty_like(v), torch.empty_like(tau)
         qo, vo = (torch.empty_like(q), torch.empty_like(v)) if primal else (None, None)
-        (nq, B), nv = q.shape, v.shape[0]
+        B = q.shape[1]
+        tape = torch.empty(tape_bytes(q.dtype, cap, B), dtype=torch.uint8, device=q.device)
+        own = status is None
+        if own:
+            status = torch.zeros(2, dtype=torch.int32, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = fn(*(_ptr(x) for x in (desc_i, desc_f, q, v, tau, gq, gv, dq, dv, dtau, qo, vo)),
-                     B, nq + 2 * nv, stream)
+            err = fn(*(_ptr(x) for x in (desc_i, desc_f, q, v, tau, gq, gv, dq, dv, dtau, qo, vo,
+                                         tape, status)), B, cap, stream)
         if err:
             raise RuntimeError(f"fused_step_vjp kernel launch failed: CUDA error {err}")
         self.launches += 1
+        if own:
+            check_tape(status, cap)
         return (dq, dv, dtau, qo, vo) if primal else (dq, dv, dtau)
 
 
@@ -266,13 +351,14 @@ class FusedStep:
     def __init__(self, model: Model):
         self.nq, self.nv = model.nq, model.nv
         self.plain = build_tile_step(model, output="stacked")
-        self._unsupported = kernel_unsupported_reason(model)
-        self._packed = None if self._unsupported else pack_descriptor(model)
+        self.unsupported_reason = kernel_unsupported_reason(model)  # None: the kernels run it
+        self._packed = None if self.unsupported_reason else pack_descriptor(model)
         self._desc = {}  # (device, dtype) -> (DescI tensor, DescF tensor)
+        self._tape = {}  # dtype -> the VJP kernel's tape capacity (nodes per env)
 
     def descriptor(self, device, dtype):
-        if self._unsupported:
-            raise NotImplementedError(f"fused_step kernel: {self._unsupported}")
+        if self.unsupported_reason:
+            raise NotImplementedError(f"fused_step kernel: {self.unsupported_reason}")
         key = (str(device), dtype)
         if key not in self._desc:
             di, df = self._packed
@@ -283,10 +369,28 @@ class FusedStep:
     def _launch(self, q, v, tau):
         return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau)
 
-    def _launch_vjp(self, q, v, tau, gq, gv):
-        return VJP_KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, gq, gv)
+    def tape_capacity(self, q, v, tau):
+        """The VJP kernel's tape capacity for this model in q's dtype, from
+        one counting launch (on the first env of q, v, tau), then cached."""
+        if q.dtype not in self._tape:
+            nodes = VJP_KERNEL.tape_nodes(*self.descriptor(q.device, q.dtype), q, v, tau)
+            self._tape[q.dtype] = tape_capacity(nodes)
+        return self._tape[q.dtype]
 
-    def __call__(self, q, v, tau):
+    def _launch_vjp(self, q, v, tau, gq, gv, status: TapeStatus, check: bool):
+        cap = self.tape_capacity(q, v, tau)
+        out = VJP_KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, gq, gv, cap,
+                         status=status.take(q.device, cap))
+        if check:
+            status.check()
+        return out
+
+    def __call__(self, q, v, tau, status: TapeStatus | None = None, check: bool = True):
+        """One step. `status` and `check` concern the backward pass on CUDA:
+        the steps of a rollout share one TapeStatus, and only the first step
+        (check=True), whose backward autograd runs last, reads it, so an
+        overflow raises before any gradient leaves the rollout. Without a
+        status the step's backward checks its own launch."""
         B = q.shape[-1]
         for x, k, name in ((q, self.nq, "q"), (v, self.nv, "v"), (tau, self.nv, "tau")):
             if x.shape != (k, B):
@@ -301,7 +405,10 @@ class FusedStep:
             raise ValueError(f"fused_step: unsupported device {q.device}")
         q, v, tau = q.contiguous(), v.contiguous(), tau.contiguous()
         if torch.is_grad_enabled() and any(x.requires_grad for x in (q, v, tau)):
-            return FusedStepFn.apply(self._launch, self._launch_vjp, q, v, tau)
+            if status is None:
+                status, check = TapeStatus(), True
+            vjp = functools.partial(self._launch_vjp, status=status, check=check)
+            return FusedStepFn.apply(self._launch, vjp, q, v, tau)
         return self._launch(q, v, tau)
 
 
@@ -355,20 +462,40 @@ def host_kernel_step(model: Model, q, v, tau):
     return torch.from_numpy(qo), torch.from_numpy(vo)
 
 
-def host_kernel_vjp(model: Model, q, v, tau, gq, gv):
-    """The VJP kernel's per-(env, direction) code compiled for the host CPU,
-    on float64 SoA tensors: ((dq, dv, dtau), (q', v')), where (q', v') is
-    the primal step of the dual run. Not on any execution path."""
+def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float64):
+    """The VJP kernel's per-env code compiled for the host CPU, on SoA
+    tensors of `dtype`: ((dq, dv, dtau), (q', v'), nodes), where (q', v') is
+    the primal step of the recording and `nodes` the node count of the first
+    env (a counting call). `cap` is the tape capacity in nodes (default:
+    tape_capacity(nodes)); an env that needs more raises. Not on any
+    execution path."""
     lib = _load("host")
+    fn = lib.fused_step_vjp_f32 if dtype == torch.float32 else lib.fused_step_vjp_f64
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
     di, df = pack_descriptor(model)
-    q, v, tau, gq, gv = _host_f64(q, v, tau, gq, gv)
+    df = df.astype(np_dtype)
+    q, v, tau, gq, gv = (np.ascontiguousarray(x.detach().cpu().numpy(), np_dtype)
+                         for x in (q, v, tau, gq, gv))
+    B = q.shape[1]
+    status = np.zeros(2, np.int32)
+    one = [np.ascontiguousarray(x[:, :1]) for x in (q, v, tau)]
+    err = fn(*(a.ctypes.data for a in (di, df, *one)), *([None] * 8), status.ctypes.data, 1, 0, None)
+    if err:
+        raise RuntimeError(f"host fused_step_vjp counting call failed: {err}")
+    nodes = int(status[0])
+    cap = tape_capacity(nodes) if cap is None else cap
+    tape = np.empty(tape_bytes(dtype, cap, B), np.uint8)
+    status[:] = 0
     outs = [np.empty_like(x) for x in (q, v, tau, q, v)]
-    ptr = [a.ctypes.data for a in (di, df, q, v, tau, gq, gv, *outs)]
-    err = lib.fused_step_vjp_f64(*ptr, q.shape[1], model.nq + 2 * model.nv, None)
+    ptr = [a.ctypes.data for a in (di, df, q, v, tau, gq, gv, *outs, tape, status)]
+    err = fn(*ptr, B, cap, None)
     if err:
         raise RuntimeError(f"host fused_step_vjp failed: {err}")
+    if status[1]:
+        raise RuntimeError(f"fused_step_vjp: tape overflow: an env records {int(status[0])} nodes, "
+                           f"the tape holds {cap}")
     dq, dv, dtau, qo, vo = (torch.from_numpy(x) for x in outs)
-    return (dq, dv, dtau), (qo, vo)
+    return (dq, dv, dtau), (qo, vo), nodes
 
 
 def to_soa(x):
@@ -390,8 +517,9 @@ def make_bench_fns(model: Model):
     step = build_fused_step(model)
 
     def roll(q, v, taus):
+        status = TapeStatus()  # read once per backward pass, by step 0's
         for t in range(taus.shape[0]):
-            q, v = step(q, v, taus[t])
+            q, v = step(q, v, taus[t], status, check=t == 0)
         return q, v
 
     def loss(q, v, taus):

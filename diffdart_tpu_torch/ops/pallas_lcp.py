@@ -27,21 +27,25 @@ from diffdart_tpu_torch.ops import _build
 from diffdart_tpu_torch.ops.lcp import _jacobi
 
 
-MAX_D = 64  # compiled into the kernel (jacobi_sweeps.cu); checked at load time
-
-
 @functools.lru_cache(maxsize=None)
 def _load(kind: str) -> ctypes.CDLL:
-    """The built jacobi_sweeps library with its argtypes declared and its
-    row cap checked."""
+    """The built jacobi_sweeps library with its argtypes declared."""
     lib = _build.build("jacobi_sweeps", kind)
-    lib.jacobi_sweeps_max_d.argtypes = []
+    lib.jacobi_sweeps_max_d.argtypes = [ctypes.c_int]
     lib.jacobi_sweeps_max_d.restype = ctypes.c_int
     for name in ("jacobi_sweeps_f32", "jacobi_sweeps_f64"):
         _build.declare(getattr(lib, name), 7, 3)
-    if lib.jacobi_sweeps_max_d() != MAX_D:
-        raise RuntimeError(f"jacobi_sweeps: kernel cap {lib.jacobi_sweeps_max_d()} != {MAX_D}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_rows(dtype, device_index: int = 0) -> int:
+    """The largest D the CUDA kernel takes in `dtype` on the card: its
+    per-env scratch (A and five vectors) must fit the card's opt-in shared
+    memory per block (227 KB on the H100: 167 rows in float64, 238 in
+    float32)."""
+    with torch.cuda.device(device_index):
+        return _load("cuda").jacobi_sweeps_max_d(torch.finfo(dtype).bits // 8)
 
 
 def _check(A, b, lo, hi, mu, fidx, what):
@@ -79,8 +83,10 @@ class _SweepKernel:
             raise RuntimeError(f"{self.name}: the sweep kernel is forward only; inputs that "
                                "require grad are not supported on CUDA")
         B, D = b.shape
-        if D > MAX_D:
-            raise NotImplementedError(f"{self.name}: D = {D} exceeds the kernel's cap of {MAX_D}")
+        cap = max_rows(A.dtype, A.device.index if A.device.index is not None else torch.cuda.current_device())
+        if D > cap:
+            raise NotImplementedError(f"{self.name}: D = {D} exceeds the kernel's cap of {cap} rows in "
+                                      f"{A.dtype} (the card's shared memory per block)")
         lib = _load("cuda")
         fn = lib.jacobi_sweeps_f32 if A.dtype == torch.float32 else lib.jacobi_sweeps_f64
         A, b, lo, hi, mu, fidx = (x.contiguous() for x in (A, b, lo, hi, mu, fidx))

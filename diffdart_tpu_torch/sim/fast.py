@@ -1,5 +1,6 @@
 """Auto-selecting fast rollout: the fused path when the model is in the fused
-subset and its parameters do not require grad, the vmap stack otherwise.
+subset (on CUDA also within the fused-step kernel's size caps) and its
+parameters do not require grad, the vmap stack otherwise.
 
 Counterpart of diffdart_tpu/sim/fast.py. Batch layout is the ordinary
 batch-first (B, nq)/(B, nv) State; the SoA re-layout of the fused path
@@ -37,12 +38,15 @@ def supports_fused(model: Model) -> bool:
         return False
 
 
-def _fallback_reason(model: Model) -> str | None:
-    """Why the fused path can't be used, or None if it can.
+def _fallback_reason(model: Model, device) -> str | None:
+    """Why the fused path can't be used on `device`, or None if it can.
 
       * model parameters must not require grad: the fused step bakes them as
         constants, so their gradients would silently vanish;
-      * the model must be inside the fused subset (supports_fused).
+      * the model must be inside the fused subset (supports_fused);
+      * on CUDA, the model must also fit the fused-step kernel's size caps
+        (FusedStep.unsupported_reason); on the CPU the plain
+        version has none.
     """
     if any(getattr(model, f) is not None and getattr(model, f).requires_grad for f in _PARAM_FIELDS):
         return (
@@ -51,6 +55,9 @@ def _fallback_reason(model: Model) -> str | None:
         )
     if not supports_fused(model):
         return "model is outside the fused subset (see sim/tilestep.py header)"
+    reason = build_fused_step(model).unsupported_reason  # cached with the model's FusedStep
+    if device.type == "cuda" and reason:
+        return f"the fused-step kernel cannot run this model: {reason}"
     return None
 
 
@@ -64,7 +71,7 @@ def rollout_fast(model: Model, state: State, taus) -> State:
     the fused path cannot be used, a UserWarning names the reason (silence it
     with a `warnings` filter) and the vmap stack's per-step-recomputing
     rollout runs instead; gradients then also flow wrt model parameters."""
-    reason = _fallback_reason(model)
+    reason = _fallback_reason(model, state.q.device)
     if reason is None:
         return rollout_tiled(model, state, taus)
     warnings.warn(f"rollout_fast: falling back to the slower vmap path: {reason}",

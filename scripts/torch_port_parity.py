@@ -143,7 +143,7 @@ def cheetah_vjp():
     want = [untiles(x) for x in vjp((tiles(gq), tiles(gv)))]
     xs = [soa(x).requires_grad_(True) for x in (q, v, tau)]
     plain = [x.T.numpy() for x in torch.autograd.grad(build_tile_step(m)(*xs), xs, (soa(gq), soa(gv)))]
-    kernel, _ = host_kernel_vjp(m, *(soa(x) for x in (q, v, tau, gq, gv)))
+    kernel = host_kernel_vjp(m, *(soa(x) for x in (q, v, tau, gq, gv)))[0]
     kernel = [x.T.numpy() for x in kernel]
     for name, got in (("port plain autograd", plain), ("port VJP kernel (host build)", kernel)):
         errs = ", ".join(f"d{k} {np.abs(a - b).max():.3e} of {np.abs(b).max():.3e}"
@@ -190,7 +190,7 @@ def vjp_modes():
         xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
         rev = torch.autograd.grad(step(*xs), xs, (gq, gv))
         fwd = vc.forward_mode_vjp(step, q, v, tau, gq, gv)
-        ker, _ = host_kernel_vjp(m, q, v, tau, gq, gv)
+        ker = host_kernel_vjp(m, q, v, tau, gq, gv)[0]
 
         def diff(a, b):
             return max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b))

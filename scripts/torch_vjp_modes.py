@@ -1,12 +1,13 @@
 """The port's VJP of one step in three modes: the VJP kernel
-(ops/csrc/fused_step.cu), forward-mode AD of the plain version
-(ops/vjp_check.py::forward_mode_vjp) and its reverse-mode autograd. Prints,
-for each model of tests/test_torch_cuda.py::KERNEL_MODELS at B = 1024 and
-for the half-cheetah at chip_smoke.py's inputs and at the main path's
-standing start (B = 4096), the per-env relative error of the kernel and of
-reverse mode against forward mode (median / p90 / p99, max) and the share
-of envs within 1e-6, 1e-4 and 1e-2, next to an all-zero and an
-env-permuted VJP. Imports no JAX.
+(ops/csrc/fused_step.cu, reverse mode on a tape), reverse-mode autograd of
+the plain version and its forward-mode AD (ops/vjp_check.py::
+forward_mode_vjp). Prints, for each model of
+tests/test_torch_cuda.py::KERNEL_MODELS at B = 1024 and for the
+half-cheetah at chip_smoke.py's inputs and at the main path's standing
+start (B = 4096), the per-env relative error of the kernel and of forward
+mode against reverse mode (median / p90 / p99, max) and the share of envs
+within 1e-6, 1e-4 and 1e-2, next to an all-zero and an env-permuted VJP.
+Imports no JAX.
 
     python scripts/torch_vjp_modes.py
 
@@ -44,7 +45,8 @@ def sync():
 
 def kernel_vjp(step, model, q, v, tau, gq, gv):
     if CUDA:
-        return fs.VJP_KERNEL(*step.descriptor(q.device, q.dtype), q, v, tau, gq, gv)
+        return fs.VJP_KERNEL(*step.descriptor(q.device, q.dtype), q, v, tau, gq, gv,
+                             step.tape_capacity(q, v, tau))
     return fs.host_kernel_vjp(model, q, v, tau, gq, gv)[0]
 
 
@@ -66,12 +68,12 @@ def report(tag, model, q, v, tau, gq, gv):
     t_fwd = time.perf_counter() - t0
     xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
     rev = torch.autograd.grad(step.plain(*xs), xs, (gq, gv))
-    rk, rr = vc.env_rel_err(got, fwd), vc.env_rel_err(rev, fwd)
-    rz = vc.env_rel_err([torch.zeros_like(x) for x in got], fwd)
-    rp = vc.env_rel_err([x.roll(1, 1) for x in got], fwd)
-    print(f"{tag}: forward mode {t_fwd:.2f} s | kernel vs forward mode {quantiles(rk)}; within "
-          f"1e-6 {share(rk, 1e-6)}, 1e-4 {share(rk, 1e-4)}, 1e-2 {share(rk, 1e-2)} | reverse vs "
-          f"forward mode {quantiles(rr)}; within 1e-2 {share(rr, 1e-2)} | zero VJP median "
+    rk, rf = vc.env_rel_err(got, rev), vc.env_rel_err(fwd, rev)
+    rz = vc.env_rel_err([torch.zeros_like(x) for x in got], rev)
+    rp = vc.env_rel_err([x.roll(1, 1) for x in got], rev)
+    print(f"{tag}: forward mode {t_fwd:.2f} s | kernel vs reverse mode {quantiles(rk)}; within "
+          f"1e-6 {share(rk, 1e-6)}, 1e-4 {share(rk, 1e-4)}, 1e-2 {share(rk, 1e-2)} | forward vs "
+          f"reverse mode {quantiles(rf)}; within 1e-2 {share(rf, 1e-2)} | zero VJP median "
           f"{rz.median().item():.2e}, permuted median {rp.median().item():.2e}", flush=True)
 
 

@@ -12,15 +12,20 @@ rounding by about eps/cfm) and requires finite output. VJP tolerances
 (diffdart_tpu_torch/ops/vjp_check.py, which says why): float64 against
 torch.autograd.grad through the plain version, at rtol 1e-6 plus atol 1e-8
 times each array's largest magnitude on >= 99% of envs; float32 against
-forward-mode AD of the plain float32 step, the kernel's own mode, at a
-median env error of at most 1e-4 and >= 90% of envs within 1e-2.
+reverse-mode autograd of the plain float32 step, the kernel's own mode, at
+a median env error of at most 1e-4 and >= 90% of envs within 1e-2. A tape
+one node short raises, for one launch and, once per backward pass, for a
+rollout. rollout_fast on a model over the fused kernel's
+caps (a 17-body chain) warns and runs the vmap stack.
 
 KERNEL_MODELS covers every joint, contact and row type of the kernel's
 subset; tests/test_torch_fused_step.py runs the same models through the
 kernel's host build.
 
-Sweep kernel: against ops/lcp.py::_jacobi at D = 9 (a random problem) and
-D = 42 (half-cheetah LCPs), odd B, both dtypes, within
+Sweep kernel: against ops/lcp.py::_jacobi at D = 9 (a random problem), D =
+42 (half-cheetah LCPs) and D = 80 (a random problem past the first
+version's cap of 64; above 48 KB of shared memory), odd B, both dtypes,
+within
 ops/sweep_check.py's limits (float64 1e-12, float32 1e-4, relative to
 max(1, |lam|)); the vmap step with contact_solver='lowrank_pallas' (the
 kernel) against 'lowrank' (_jacobi) per model: float64 q 1e-8, v 1e-6,
@@ -170,7 +175,7 @@ def test_vjp_kernel_matches_plain_autograd(model, dtype):
     step = fs.build_fused_step(m)
     n0 = fs.VJP_KERNEL.launches
     dq, dv, dtau, qo, vo = fs.VJP_KERNEL(*step.descriptor(q.device, dtype), q, v, tau, gq, gv,
-                                         primal=True)
+                                         step.tape_capacity(q, v, tau), primal=True)
     torch.cuda.synchronize()
     assert fs.VJP_KERNEL.launches == n0 + 1
     with torch.no_grad():
@@ -183,8 +188,69 @@ def test_vjp_kernel_matches_plain_autograd(model, dtype):
     if dtype == torch.float64:
         assert vc.envs_within(got, want) >= vc.VJP_SHARE
         return
-    median, share, _ = vc.f32_stats(got, vc.forward_mode_vjp(step.plain, q, v, tau, gq, gv))
+    median, share, _ = vc.f32_stats(got, want)
     assert vc.f32_ok(median, share), (median, share)
+
+
+@pytest.mark.cuda
+def test_vjp_tape_overflow_raises():
+    """A tape one node short of the count raises with the counts; the
+    counting launch is not a launch of the VJP."""
+    _cuda()
+    m, q0 = _worm(torch.float32, "cuda")
+    q, v, tau = _soa_cuda(inputs(q0, m.nq, m.nv, 64, 3), torch.float32)
+    step = fs.build_fused_step(m)
+    desc = step.descriptor(q.device, torch.float32)
+    n0, c0 = fs.VJP_KERNEL.launches, fs.VJP_KERNEL.count_launches
+    nodes = fs.VJP_KERNEL.tape_nodes(*desc, q, v, tau)
+    assert (fs.VJP_KERNEL.launches, fs.VJP_KERNEL.count_launches) == (n0, c0 + 1)
+    g = torch.ones_like(q), torch.ones_like(v)
+    with pytest.raises(RuntimeError, match=f"tape overflow: an env records {nodes} nodes"):
+        fs.VJP_KERNEL(*desc, q, v, tau, *g, nodes - 1)
+    got = fs.VJP_KERNEL(*desc, q, v, tau, *g, nodes)
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+@pytest.mark.cuda
+def test_bptt_tape_overflow_raises_before_the_gradient():
+    """A rollout's backward pass reads the tape's overflow status once, in
+    its first step's backward: with a tape one node short, all T VJP
+    launches run, then the pass raises and no gradient reaches taus."""
+    _cuda()
+    m, q0 = _worm(torch.float32, "cuda")
+    B, T = 64, 3
+    q, v, tau = _soa_cuda(inputs(q0, m.nq, m.nv, B, 3), torch.float32)
+    step = fs.build_fused_step(m)
+    nodes = fs.VJP_KERNEL.tape_nodes(*step.descriptor(q.device, torch.float32), q, v, tau)
+    step._tape[torch.float32] = nodes - 1
+    state = State(q=q.T.contiguous(), v=v.T.contiguous())
+    taus = (0.1 * torch.randn(T, B, m.nv, device="cuda")).requires_grad_(True)
+    g0 = fs.VJP_KERNEL.launches
+    out = rollout_fast(m, state, taus)
+    with pytest.raises(RuntimeError, match=f"tape overflow: an env records {nodes} nodes"):
+        (out.q ** 2).sum().backward()
+    assert fs.VJP_KERNEL.launches == g0 + T and taus.grad is None
+    del step._tape[torch.float32]
+
+
+@pytest.mark.cuda
+def test_rollout_fast_over_the_kernel_caps_falls_back():
+    """A 17-body chain is inside the fused subset but over the fused
+    kernel's cap of 16 bodies: on the card rollout_fast warns and runs the
+    vmap stack, launching no fused-step kernel, and returns finite states."""
+    _cuda()
+    b = ModelBuilder(dt=1e-3)
+    prev = -1
+    for _ in range(fs.MAX_NB + 1):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.1))
+    chain = b.finalize(dtype=torch.float32, device="cuda")
+    B = 64
+    state = State(q=torch.full((B, chain.nq), 0.1, device="cuda"), v=torch.zeros(B, chain.nv, device="cuda"))
+    n0 = fs.KERNEL.launches
+    with pytest.warns(UserWarning, match="bodies = 17 exceeds the kernel's cap of 16"):
+        out = rollout_fast(chain, state, 0.1 * torch.randn(5, B, chain.nv, device="cuda"))
+    assert fs.KERNEL.launches == n0
+    assert out.q.shape == (B, chain.nq) and torch.isfinite(out.q).all() and torch.isfinite(out.v).all()
 
 
 @pytest.mark.cuda
@@ -262,6 +328,33 @@ def test_sweep_kernel_matches_plain_version(dtype, D, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_kernel_past_64_rows(dtype):
+    """D = 80 (51 KB of shared memory in float64, past the 48 KB default):
+    the kernel against _jacobi within sweep_check's limits."""
+    _cuda()
+    rng = np.random.default_rng(80)
+    B, D, nc, nv = 17, 80, 26, 20
+    J = rng.normal(size=(B, D, nv))
+    A = np.einsum("bik,bjk->bij", J, J) + 1e-3 * np.eye(D)
+    hi = np.zeros((B, D))
+    hi[:, :nc] = hi[:, 3 * nc:] = np.inf
+    mu = np.zeros((B, D))
+    mu[:, nc:3 * nc] = 0.5
+    fidx = np.full(D, -1)
+    fidx[nc:3 * nc] = np.tile(np.arange(nc), 2)
+    args = [torch.tensor(x, dtype=dtype, device="cuda") for x in (A, rng.normal(size=(B, D)), np.zeros((B, D)), hi, mu)]
+    f = torch.tensor(fidx, device="cuda")
+    n0 = P.KERNEL_SINGLE.launches
+    got = P.jacobi_sweeps_pallas_single(*args, f, 6)
+    torch.cuda.synchronize()
+    assert P.KERNEL_SINGLE.launches == n0 + 1
+    want = _jacobi(*args, f, 6)
+    assert sc.sweep_ok(got, want), sc.sweep_error(got, want)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.cuda
 def test_sweep_wrapper_raises():
     _cuda()
     A, b, lo, hi, mu, fidx, iters = _sweep_problem(9, 8, torch.float64)
@@ -269,10 +362,11 @@ def test_sweep_wrapper_raises():
         P.jacobi_sweeps_pallas(A, b.cpu(), lo, hi, mu, fidx, iters)
     with pytest.raises(TypeError, match="float32 or float64"):
         P.jacobi_sweeps_pallas(*(x.half() for x in (A, b, lo, hi, mu)), fidx, iters)
-    D = P.MAX_D + 1
+    D = P.max_rows(torch.float64) + 1
+    assert D - 1 >= 160  # 227 KB of shared memory on the H100 holds 167 rows in float64
     big = torch.eye(D, dtype=torch.float64, device="cuda").expand(2, D, D)
     vec = torch.zeros(2, D, dtype=torch.float64, device="cuda")
-    with pytest.raises(NotImplementedError, match="cap"):
+    with pytest.raises(NotImplementedError, match=f"D = {D} exceeds the kernel's cap of {D - 1} rows"):
         P.jacobi_sweeps_pallas_single(big, vec, vec, vec, vec, torch.full((D,), -1, device="cuda"),
                                       iters)
     with pytest.raises(RuntimeError, match="forward only"):

@@ -6,13 +6,16 @@
   `_bwd_kernel` in interpret mode).
 * The CUDA kernels' per-env code, compiled for the host CPU, against the
   plain PyTorch version (float64, every model of KERNEL_MODELS): the step's
-  output, and the VJP against torch.autograd.grad through the plain
-  version. The kernels' arithmetic is checked here although the kernels
-  themselves run only on a card.
+  output, and the VJP (reverse mode on a tape) against torch.autograd.grad
+  through the plain version and against its forward-mode AD; the tape's
+  primal against the step; the tape's node count (the same in every env)
+  and its overflow, which raises. The kernels' arithmetic is checked here
+  although the kernels themselves run only on a card.
 * FusedStepFn (the autograd.Function of the CUDA path) over a short BPTT
   rollout, with the host builds as its launchers, against plain autograd.
 * rollout_fast on the CPU against a loop over the plain version; the cache
-  of one FusedStep per model.
+  of one FusedStep per model; its fallback reason on CUDA for a model over
+  the kernel's caps.
 * What must raise: models outside the fused subset or the kernel's subset,
   inputs on a device that is neither the CPU nor CUDA.
 * The port imports neither jax nor the JAX package.
@@ -42,6 +45,7 @@ from diffdart_tpu_torch.models import half_cheetah, jump_worm
 from diffdart_tpu_torch.ops import fused_step as fs
 from diffdart_tpu_torch.ops.fused_step import host_kernel_step, host_kernel_vjp
 from diffdart_tpu_torch.ops.vjp_check import VJP_ATOL, VJP_RTOL, VJP_SHARE, envs_within, forward_mode_vjp
+from diffdart_tpu_torch.sim import fast
 from diffdart_tpu_torch.sim.fast import rollout_fast, supports_fused
 from diffdart_tpu_torch.sim.tilestep import TileStepUnsupported, build_tile_step
 
@@ -106,7 +110,7 @@ def test_host_vjp_matches_plain_autograd(model):
     q, v, tau, gq, gv = _vjp_inputs(m, q0, B=64, seed=2)
     xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
     want = torch.autograd.grad(build_tile_step(m)(*xs), xs, (gq, gv))
-    got, _ = host_kernel_vjp(m, q, v, tau, gq, gv)
+    got = host_kernel_vjp(m, q, v, tau, gq, gv)[0]
     assert all(torch.isfinite(x).all() for x in got)
     assert envs_within(got, want) >= VJP_SHARE
 
@@ -114,26 +118,91 @@ def test_host_vjp_matches_plain_autograd(model):
 @pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
 def test_host_vjp_matches_plain_forward_mode(model):
     """The host build against forward-mode AD of the plain version, the
-    reference that chip_smoke.py and tests/test_torch_cuda.py hold the
-    float32 kernel to, here in float64 at the float64 tolerance."""
+    other mode, in float64 at the float64 tolerance (chip_smoke.py prints
+    it beside the float32 check against reverse mode)."""
     _needs_cxx()
     m, q0 = KERNEL_MODELS[model](torch.float64, "cpu")
     q, v, tau, gq, gv = _vjp_inputs(m, q0, B=16, seed=6)
     want = forward_mode_vjp(build_tile_step(m), q, v, tau, gq, gv)
-    got, _ = host_kernel_vjp(m, q, v, tau, gq, gv)
+    got = host_kernel_vjp(m, q, v, tau, gq, gv)[0]
     assert envs_within(got, want) >= VJP_SHARE
     assert envs_within([torch.zeros_like(x) for x in got], want) == 0.0
 
 
 @pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
 def test_host_vjp_primal_equals_host_step(model):
-    """The dual run's primal is kernel 1's output, bit for bit."""
+    """The primal that the tape records is kernel 1's output, bit for bit."""
     _needs_cxx()
     m, q0 = KERNEL_MODELS[model](torch.float64, "cpu")
     q, v, tau, gq, gv = _vjp_inputs(m, q0, B=32, seed=3)
-    _, (qo, vo) = host_kernel_vjp(m, q, v, tau, gq, gv)
+    _, (qo, vo), _ = host_kernel_vjp(m, q, v, tau, gq, gv)
     qk, vk = host_kernel_step(m, q, v, tau)
     assert torch.equal(qo, qk) and torch.equal(vo, vk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
+def test_tape_node_count_is_the_same_in_every_env(model, dtype):
+    """Every env of a model records the same number of nodes: a tape of
+    exactly the count of the first env of one input set holds every env of
+    another, and the count does not move with the inputs."""
+    _needs_cxx()
+    m, q0 = KERNEL_MODELS[model](torch.float64, "cpu")
+    n1 = host_kernel_vjp(m, *_vjp_inputs(m, q0, B=1, seed=4), dtype=dtype)[2]
+    (dq, dv, dtau), _, n2 = host_kernel_vjp(m, *_vjp_inputs(m, q0, B=16, seed=5), cap=n1, dtype=dtype)
+    assert n1 == n2 > m.nq + 2 * m.nv
+    assert all(torch.isfinite(x).all() for x in (dq, dv, dtau))
+
+
+def test_tape_overflow_raises():
+    """A tape one node short of what an env records raises, with no result;
+    the exact count suffices."""
+    _needs_cxx()
+    m = _worm()
+    q, v, tau, gq, gv = _vjp_inputs(m, WORM_Q0, B=8, seed=7)
+    nodes = host_kernel_vjp(m, q, v, tau, gq, gv)[2]
+    with pytest.raises(RuntimeError, match=f"tape overflow: an env records {nodes} nodes, the tape holds {nodes - 1}"):
+        host_kernel_vjp(m, q, v, tau, gq, gv, cap=nodes - 1)
+    got = host_kernel_vjp(m, q, v, tau, gq, gv, cap=nodes)[0]
+    assert all(torch.isfinite(x).all() for x in got)
+    assert fs.tape_bytes(torch.float32, nodes, 4096) == nodes * 4096 * 20
+    assert fs.tape_bytes(torch.float64, nodes, 2) == nodes * 2 * 32
+
+
+def test_tape_status_is_read_once_per_pass():
+    """The VJP launches of one backward pass share one TapeStatus: every
+    launch gets the same zeroed tensor, the check raises with the counts
+    when a launch flagged an overflow, and the next pass starts from zero."""
+    st = fs.TapeStatus()
+    t = st.take(torch.device("cpu"), 10)
+    assert t is st.take(torch.device("cpu"), 10) and t.tolist() == [0, 0]
+    t.copy_(torch.tensor([12, 1], dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="tape overflow: an env records 12 nodes, the tape holds 10"):
+        st.check()
+    assert st.tensor is None
+    st.check()
+    assert st.take(torch.device("cpu"), 10).tolist() == [0, 0]
+
+
+def test_record_only_launch_writes_no_gradient():
+    """With dq null the VJP launch records the tape (the primal step and
+    the node count) and stops: the gradient buffers stay as they were."""
+    _needs_cxx()
+    m = _worm()
+    q, v, tau, gq, gv = (np.ascontiguousarray(x.numpy()) for x in _vjp_inputs(m, WORM_Q0, B=4, seed=8))
+    di, df = fs.pack_descriptor(m)
+    (_, _, _), (q1, v1), nodes = host_kernel_vjp(m, *(torch.from_numpy(x) for x in (q, v, tau, gq, gv)))
+    cap = fs.tape_capacity(nodes)
+    tape = np.empty(fs.tape_bytes(torch.float64, cap, 4), np.uint8)
+    status = np.zeros(2, np.int32)
+    dv, dtau = np.full_like(v, 7.0), np.full_like(tau, 7.0)
+    qo, vo = np.empty_like(q), np.empty_like(v)
+    err = fs._load("host").fused_step_vjp_f64(
+        *(a.ctypes.data for a in (di, df, q, v, tau, gq, gv)), None,
+        *(a.ctypes.data for a in (dv, dtau, qo, vo, tape, status)), 4, cap, None)
+    assert err == 0 and status.tolist() == [nodes, 0]
+    assert np.array_equal(qo, q1.numpy()) and np.array_equal(vo, v1.numpy())
+    assert (dv == 7.0).all() and (dtau == 7.0).all()
 
 
 def test_host_vjp_matches_pallas_bwd_kernel_interpret():
@@ -155,7 +224,7 @@ def test_host_vjp_matches_pallas_bwd_kernel_interpret():
                      *(to_tiles(jnp.asarray(x)) for x in (q, v, tau)))
     want = [torch.tensor(np.asarray(from_tiles(x)).T)
             for x in vjp((to_tiles(jnp.asarray(gq)), to_tiles(jnp.asarray(gv))))]
-    got, _ = host_kernel_vjp(m, *(_soa(x) for x in (q, v, tau, gq, gv)))
+    got = host_kernel_vjp(m, *(_soa(x) for x in (q, v, tau, gq, gv)))[0]
     assert all(torch.isfinite(x).all() for x in got)
     assert envs_within(got, want) >= VJP_SHARE
 
@@ -253,6 +322,27 @@ def test_unsupported_models_raise():
                            torch.zeros(1, 2, 4, dtype=torch.float64))
     (g,) = torch.autograd.grad(out.q[:, 0].sum(), traced.mass)
     assert torch.isfinite(g).all()
+
+
+def test_fallback_reason_follows_the_device():
+    """A model inside the fused subset but over a kernel cap (17 bodies)
+    takes the fused path's plain version on the CPU and falls back to the
+    vmap stack on CUDA, with the cap named; a model within the caps takes
+    the fused path on both."""
+    b = ModelBuilder(dt=1e-3)
+    prev = -1
+    for _ in range(fs.MAX_NB + 1):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.1))
+    chain = b.finalize(dtype=torch.float64, device="cpu")
+    assert supports_fused(chain)
+    assert fast._fallback_reason(chain, torch.device("cpu")) is None
+    reason = fast._fallback_reason(chain, torch.device("cuda"))
+    assert "bodies = 17 exceeds the kernel's cap of 16" in reason
+    worm = _worm()
+    assert fast._fallback_reason(worm, torch.device("cuda")) is None
+    z = torch.zeros(2, chain.nq, dtype=torch.float64)
+    out = rollout_fast(chain, State(q=z + 0.1, v=z), torch.zeros(3, 2, chain.nv, dtype=torch.float64))
+    assert torch.isfinite(out.q).all() and out.q.shape == (2, chain.nq)
 
 
 def test_gpu_inputs_that_require_grad_raise():

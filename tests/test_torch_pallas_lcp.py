@@ -12,7 +12,9 @@ kernel's per-env code (ops/csrc/jacobi_sweeps.cu) compiled for the host.
   (diffdart_tpu/ops/pallas_lcp.py:143-153), which that tolerance covers.
 * The host build of the kernel against the plain version on the same
   problems and on real half-cheetah LCPs (D = 42): atol 1e-12, the same
-  arithmetic with dot products summed in another order.
+  arithmetic with dot products summed in another order; and on a random
+  problem of D = 80 rows (past the first version's cap of 64) within
+  ops/sweep_check.py's float64 limit.
 * The wrappers' checks: a device that is neither the CPU nor CUDA, shape
   and dtype mismatches raise; CPU calls launch nothing.
 """
@@ -29,6 +31,7 @@ from diffdart_tpu.ops.lcp import _jacobi as jax_jacobi
 from diffdart_tpu.ops.pallas_lcp import jacobi_sweeps_pallas as jax_sweeps
 from diffdart_tpu.ops.pallas_lcp import jacobi_sweeps_pallas_single as jax_sweeps_single
 from diffdart_tpu_torch.ops import pallas_lcp as P
+from diffdart_tpu_torch.ops import sweep_check as sc
 from diffdart_tpu_torch.ops.lcp import _jacobi
 from diffdart_tpu_torch.sim.constrained import prepare_constrained
 from diffdart_tpu_torch.dynamics.model import State
@@ -120,6 +123,35 @@ def test_host_build_on_real_lcps(name):
     got = P.host_sweeps(*args, lcp.fidx, m.contact_iters)
     assert torch.isinf(lcp.hi).any()
     close(got, want, atol=1e-12)
+    assert want.abs().max() > 0
+
+
+def _wide_problem(B, D, nv, seed):
+    """A random boxed LCP of D rows: nc contacts (normal, two friction rows
+    each), then D - 3 nc rows with lo = 0, hi = inf (limit rows)."""
+    rng = np.random.default_rng(seed)
+    nc = D // 3
+    J = rng.normal(size=(B, D, nv))
+    A = np.einsum("bik,bjk->bij", J, J) + 1e-3 * np.eye(D)
+    lo = np.zeros((B, D))
+    hi = np.zeros((B, D))
+    hi[:, :nc] = np.inf
+    hi[:, 3 * nc:] = np.inf
+    mu = np.zeros((B, D))
+    mu[:, nc:3 * nc] = 0.5
+    fidx = np.full(D, -1)
+    fidx[nc:3 * nc] = np.tile(np.arange(nc), 2)
+    return [T(x) for x in (A, rng.normal(size=(B, D)), lo, hi, mu)] + [torch.tensor(fidx)]
+
+
+def test_host_build_past_64_rows():
+    """D = 80: the kernel's per-env code (which loops its rows over the
+    block's threads) against _jacobi within sweep_check's float64 limit."""
+    _needs_cxx()
+    *args, fidx = _wide_problem(B=3, D=80, nv=20, seed=3)
+    got = P.host_sweeps(*args, fidx, 6)
+    want = _jacobi(*args, fidx, 6)
+    assert sc.sweep_ok(got, want), sc.sweep_error(got, want)
     assert want.abs().max() > 0
 
 
