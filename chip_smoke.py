@@ -10,7 +10,10 @@ falls back to the CPU or to the plain version:
                  (ops/csrc/fused_step.cu, ops/csrc/jacobi_sweeps.cu), one
                  process each, started together (each wrapper module's
                  _load, on its own thread); ptxas's registers and stack of
-                 the step kernel and of the VJP kernel, per dtype.
+                 the step kernel and of the VJP kernel, per dtype; the step
+                 kernel's shared memory per env (one warp, one block) at
+                 the half-cheetah's D and nv, and its resident warps per SM
+                 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
   3. f64      -- half-cheetah, B = 4096: 20 steps of kernel vs plain
                  version, re-synced to the plain version after each step;
                  q atol 1e-8, v atol 1e-7.
@@ -23,7 +26,10 @@ falls back to the CPU or to the plain version:
                  package's bench.py): the launch count over that run must be
                  T; the final state finite with a plausible torso height.
                  Then the kernel, the plain version and the rollout are
-                 timed with CUDA events.
+                 timed with CUDA events: the step kernel's device ms per
+                 launch from its bare C launcher (step_device_ms), beside
+                 the launch that stops after the front end (lane 0's serial
+                 stage, before the warp's LCP solve).
   6. reference -- the same rollout in float64 at B = 256 through the kernel
                  and through the plain version: >= 99% of envs within
                  q 1e-6, v 1e-4 at the end of the 50 steps.
@@ -33,7 +39,8 @@ falls back to the CPU or to the plain version:
                  torch.autograd.grad through the plain version: every env
                  finite, >= 99% of envs within rtol 1e-6 plus atol 1e-8 times
                  each of dq, dv, dtau's largest magnitude, and the tape's
-                 primal equal to kernel 1's output. The tape's node count per
+                 primal (the serial solve) equal to kernel 1's output (the
+                 warp's solve) bit for bit on all 4,096 envs. The tape's node count per
                  env, its bytes per env and per launch.
   8. grad32   -- the same step in float32 against reverse-mode autograd of
                  the plain float32 step (the kernel's own mode, on the same
@@ -44,6 +51,8 @@ falls back to the CPU or to the plain version:
                  an env's error is amplified that far. Forward-mode AD of the
                  plain float32 step is printed beside it; it cannot be held to
                  either (forward- and reverse-mode sums run in other orders).
+                 The tape's float32 primal equals kernel 1's output bit for
+                 bit on all 4,096 envs.
                  Tolerances and their reasons: diffdart_tpu_torch/ops/vjp_check.py.
   9. bptt     -- the main path of training: rollout_fast on the half-cheetah,
                  B = 4096, T = 50, tau = 0.1 N(0,1), float32, with taus that
@@ -148,19 +157,14 @@ def host_ms(fn, reps):
     return out
 
 
-def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
-    """(device ms, host ms) per launch of the sweep kernel: its C launcher
-    called directly on prepared pointers, `reps` launches back to back
-    between CUDA events, so none of the wrapper's checks sits between two
+def bare_ms(fn, args, reps):
+    """(device ms, host ms) per launch of a kernel's C launcher `fn` called
+    directly on prepared pointers `args`: `reps` launches back to back
+    between CUDA events, so none of a wrapper's checks sits between two
     launches. While the host ms (the time to issue one launch) is below the
     device ms, the card never waits for the host and the events time the
     kernel alone."""
-    fn = lib.jacobi_sweeps_f32 if A.dtype == torch.float32 else lib.jacobi_sweeps_f64
-    A, b, lo, hi, mu, fidx = (x.contiguous() for x in (A, b, lo, hi, mu, fidx))
-    lam = torch.empty_like(b)
-    args = (*(x.data_ptr() for x in (A, b, lo, hi, mu, fidx, lam)), b.shape[0], b.shape[1], iters,
-            torch.cuda.current_stream().cuda_stream)
-    check(fn(*args) == 0, "sweep kernel launch failed")
+    check(fn(*args) == 0, f"{fn.__name__} launch failed")
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -169,16 +173,38 @@ def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
     host = 1e3 * (time.perf_counter() - t0) / reps
     end.record()
     torch.cuda.synchronize()
-    check(not any(errs), "sweep kernel launch failed")
+    check(not any(errs), f"{fn.__name__} launch failed")
     return start.elapsed_time(end) / reps, host
 
 
+def step_device_ms(lib, desc, D, q, v, tau, front_only=False, reps=50, sized=None):
+    """(device ms, host ms, (q', v')) per launch of the step kernel through
+    its C launcher (bare_ms). front_only: the launch that stops after the
+    front end (v' is then v*, q' unwritten). D and `sized` (default: v's
+    nv) size the shared memory per env: at or above the model's D and nv."""
+    fn = lib.fused_step_f32 if q.dtype == torch.float32 else lib.fused_step_f64
+    qo, vo = torch.empty_like(q), torch.empty_like(v)
+    args = (*(x.data_ptr() for x in (*desc, q, v, tau, qo, vo)), q.shape[1], D,
+            v.shape[0] if sized is None else sized, int(front_only),
+            torch.cuda.current_stream().cuda_stream)
+    ms, host = bare_ms(fn, args, reps)
+    return ms, host, (qo, vo)
+
+
+def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
+    """(device ms, host ms) per launch of the sweep kernel (bare_ms)."""
+    fn = lib.jacobi_sweeps_f32 if A.dtype == torch.float32 else lib.jacobi_sweeps_f64
+    A, b, lo, hi, mu, fidx = (x.contiguous() for x in (A, b, lo, hi, mu, fidx))
+    lam = torch.empty_like(b)
+    args = (*(x.data_ptr() for x in (A, b, lo, hi, mu, fidx, lam)), b.shape[0], b.shape[1], iters,
+            torch.cuda.current_stream().cuda_stream)
+    return bare_ms(fn, args, reps)
+
+
 def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
-    """(device ms, host ms) per launch of the VJP kernel: its C launcher
-    called directly on prepared pointers (a tape of `cap` nodes per env
-    allocated once), `reps` launches back to back between CUDA events, as
-    sweep_device_ms does for the sweeps. part='whole' is the launch the
-    BPTT makes; 'record' records the tape and stops (dq null: no sweep);
+    """(device ms, host ms) per launch of the VJP kernel (bare_ms), with a
+    tape of `cap` nodes per env allocated once. part='whole' is the launch
+    the BPTT makes; 'record' records the tape and stops (dq null: no sweep);
     'count' is the counting launch (no tape: the recording's arithmetic)."""
     from diffdart_tpu_torch.ops.fused_step import tape_bytes
 
@@ -192,17 +218,9 @@ def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
             *(None if x is None else x.data_ptr() for x in outs), None, None,
             None if part == "count" else tape.data_ptr(), status.data_ptr(), q.shape[1], cap,
             torch.cuda.current_stream().cuda_stream)
-    check(fn(*args) == 0, "VJP kernel launch failed")
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    errs = [fn(*args) for _ in range(reps)]
-    host = 1e3 * (time.perf_counter() - t0) / reps
-    end.record()
-    torch.cuda.synchronize()
-    check(not any(errs) and int(status[1]) == 0, "VJP kernel launch failed or its tape overflowed")
-    return start.elapsed_time(end) / reps, host
+    out = bare_ms(fn, args, reps)
+    check(int(status[1]) == 0, "the VJP kernel's tape overflowed")
+    return out
 
 
 def ptxas_lines(lib):
@@ -213,11 +231,14 @@ def ptxas_lines(lib):
              "fused_step_vjp_kernelId": "fused_step_vjp<double>",
              "jacobi_sweeps_kernelIf": "jacobi_sweeps<float>",
              "jacobi_sweeps_kernelId": "jacobi_sweeps<double>"}
-    out, cur, stack = {}, None, ""
+    out, cur, entry, props, stack = {}, None, None, None, ""
     for ln in lib.build_log.splitlines():
         if "Compiling entry function" in ln:
             cur = next((v for k, v in names.items() if k in ln), None)
-        elif "stack frame" in ln:
+            entry = ln.split("'")[1] if "'" in ln else None
+        elif "Function properties for" in ln:
+            props = ln.split("Function properties for")[1].strip()
+        elif "stack frame" in ln and props == entry:  # the kernel's own, not a callee's
             stack = ln.strip().split(",")[0]
         elif "registers" in ln and cur is not None:
             regs = ln.split("Used")[1].split(",")[0].strip()
@@ -319,9 +340,18 @@ def main():
           f"in parallel) | ptxas: {ptxas(lib)}")
     check(all(k in ptxas_lines(lib) for k in ("fused_step<float>", "fused_step_vjp<float>")),
           "no ptxas report of the step and VJP kernels")
+    m64 = half_cheetah(dt=2e-3, dtype=torch.float64, device="cuda")
+    m32 = half_cheetah(dt=2e-3, dtype=torch.float32, device="cuda")
+    step64, step32 = fs.build_fused_step(m64), fs.build_fused_step(m32)
+    D, nv = step32.D, m32.nv
+    occ = {dt: fs.occupancy("cuda", dt, D, nv) for dt in (torch.float32, torch.float64)}
+    print("[build] step kernel, one warp per env, " + "; ".join(
+        f"{str(dt)[6:]}: {o['env_bytes']} bytes of shared memory per env (one warp, one block), "
+        f"{o['warps_per_sm']} warps per SM" for dt, o in occ.items())
+        + f" (half-cheetah, D = {D}, nv = {nv})")
+    check(all(o["warps_per_sm"] > 0 for o in occ.values()), "the step kernel fits no block on an SM")
 
     rng = np.random.RandomState(0)
-    m64 = half_cheetah(dt=2e-3, dtype=torch.float64, device="cuda")
     q0 = cheetah_init_q(m64).cpu().numpy()
     q_np = np.tile(q0, (B, 1)) + 0.02 * rng.randn(B, m64.nq)
     v_np = 0.2 * rng.randn(B, m64.nv)
@@ -331,7 +361,6 @@ def main():
         return torch.tensor(np.ascontiguousarray(x.T), dtype=dtype, device="cuda")
 
     # ---- 3. float64 parity, 20 re-synced steps ----
-    step64 = fs.build_fused_step(m64)
     q, v, tau = soa(q_np, torch.float64), soa(v_np, torch.float64), soa(tau_np, torch.float64)
     eq = ev = 0.0
     with torch.no_grad():
@@ -346,8 +375,6 @@ def main():
     check(eq <= 1e-8 and ev <= 1e-7, "float64 kernel disagrees with the plain version")
 
     # ---- 4. float32 parity, one step ----
-    m32 = half_cheetah(dt=2e-3, dtype=torch.float32, device="cuda")
-    step32 = fs.build_fused_step(m32)
     q, v, tau = soa(q_np, torch.float32), soa(v_np, torch.float32), soa(tau_np, torch.float32)
     with torch.no_grad():
         qk, vk = step32(q, v, tau)
@@ -383,7 +410,10 @@ def main():
 
     with torch.no_grad():
         qs, vs, ts = fs.to_soa(q_main), torch.zeros(m32.nv, B, device="cuda"), taus[0].T.contiguous()
-        kernel_ms = cuda_ms(lambda: step32(qs, vs, ts), reps=50)
+        desc32 = step32.descriptor(qs.device, torch.float32)
+        wrapped_ms = cuda_ms(lambda: step32(qs, vs, ts), reps=50)
+        kernel_ms, kernel_issue_ms, _ = step_device_ms(lib, desc32, D, qs, vs, ts)
+        front_ms, _, (_, vstar) = step_device_ms(lib, desc32, D, qs, vs, ts, front_only=True)
         plain_ms = cuda_ms(lambda: step32.plain(qs, vs, ts), reps=3)
         roll_ms = cuda_ms(lambda: rollout_fast(m32, state, taus), reps=3)
 
@@ -393,9 +423,15 @@ def main():
 
         roll_uncached_ms = cuda_ms(uncached_rollout, reps=3)
     sps = B * T / (roll_ms * 1e-3)
-    print(f"[main] timing on {card}: kernel {kernel_ms:.4f} ms/step, rollout {roll_ms:.3f} ms "
-          f"= {roll_ms / T:.4f} ms/step = {sps:.6g} env-steps/s forward; "
-          f"plain version {plain_ms:.2f} ms/step (context only)")
+    print(f"[main] timing on {card}: step kernel {kernel_ms:.4f} ms/launch on the device (one warp "
+          f"per env; issuing one launch {kernel_issue_ms:.4f} ms on the host; through the wrapper "
+          f"{wrapped_ms:.4f} ms/step; one thread per env, the earlier design: 0.8484 ms on an "
+          f"NVIDIA H100 80GB HBM3 at 700 W); the launch that stops after the front end "
+          f"{front_ms:.4f} ms = {100 * front_ms / kernel_ms:.1f}% of it; rollout {roll_ms:.3f} ms = "
+          f"{roll_ms / T:.4f} ms/step = {sps:.6g} env-steps/s forward; plain version "
+          f"{plain_ms:.2f} ms/step (context only)")
+    check(kernel_issue_ms < kernel_ms, "the step kernel's timing waited on the host")
+    check(bool(torch.isfinite(vstar).all()), "non-finite v* from the front end's launch")
     print(f"[main] host set-up, rollout - {T} x kernel: {roll_ms - T * kernel_ms:.3f} ms with the "
           f"per-model FusedStep cache, {roll_uncached_ms - T * kernel_ms:.3f} ms with the cache "
           f"cleared before each rollout (rollout {roll_uncached_ms:.3f} ms)")
@@ -434,7 +470,8 @@ def main():
     print(f"[grad64] VJP one step at B={B}: {100 * share64:.2f}% of envs within rtol 1e-6 + "
           f"atol 1e-8 max|g|; env relative error median {rel64.median().item():.3e}, p99 "
           f"{rel64.quantile(0.99).item():.3e}, max {rel64.max().item():.3e}; max |d| {err64:.3e}; "
-          f"finite {finite64}; tape primal == kernel 1 output: {primal_eq}")
+          f"finite {finite64}; step kernel output == the tape's primal (serial solve) on all "
+          f"{B} envs: {primal_eq}")
     check(finite64, "non-finite float64 VJP")
     check(primal_eq, "the VJP kernel's primal differs from kernel 1's output")
     check(share64 >= vc.VJP_SHARE, "float64 VJP kernel disagrees with plain autograd on > 1% of envs")
@@ -442,7 +479,10 @@ def main():
     # ---- 8. grad32: the same step in float32 against reverse-mode autograd ----
     q, v, tau, gq, gv = (soa(x, torch.float32) for x in (q_np, v_np, tau_np, gq_np, gv_np))
     cap32 = step32.tape_capacity(q, v, tau)
-    d32 = fs.VJP_KERNEL(*step32.descriptor(q.device, torch.float32), q, v, tau, gq, gv, cap32)
+    *d32, q32p, v32p = fs.VJP_KERNEL(*step32.descriptor(q.device, torch.float32), q, v, tau, gq, gv,
+                                     cap32, primal=True)
+    with torch.no_grad():
+        qk, vk = step32(q, v, tau)
     rev32 = vc.reverse_mode_vjp(step32.plain, q, v, tau, gq, gv)
     fwd32 = vc.forward_mode_vjp(step32.plain, q, v, tau, gq, gv)
     torch.cuda.synchronize()
@@ -456,6 +496,10 @@ def main():
           f"{100 * share32:.2f}% of envs within {vc.F32_REL:g}, {100 * exact32:.2f}% equal, max |d| "
           f"{vjp32_err:.3e}; finite {finite32}; plain forward mode against it (context): median "
           f"{med_fwd:.3e}, {100 * share_fwd:.2f}% within {vc.F32_REL:g}")
+    primal_eq32 = bool(torch.equal(q32p, qk) and torch.equal(v32p, vk))
+    print(f"[grad32] step kernel output == the tape's primal (serial solve) on all {B} envs: "
+          f"{primal_eq32}")
+    check(primal_eq32, "the VJP kernel's float32 primal differs from kernel 1's output")
     check(finite32, "non-finite float32 VJP")
     check(vc.f32_ok(med32, share32),
           f"float32 VJP kernel disagrees with reverse-mode autograd of the plain version (median > "
@@ -498,9 +542,7 @@ def main():
     bptt_runs = sorted(cuda_ms(lambda: bptt(m32, state, taus), reps=1) for _ in range(5))
     bptt_ms = bptt_runs[2]
     sps_grad = B * T / (bptt_ms * 1e-3)
-    qs, vs, ts = fs.to_soa(q_main), torch.zeros(m32.nv, B, device="cuda"), taus[0].T.contiguous()
     gqs, gvs = torch.ones_like(qs), torch.ones_like(vs)
-    desc32 = step32.descriptor(qs.device, torch.float32)
     vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32)
     record_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="record")
     count_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="count")
@@ -786,6 +828,8 @@ def main():
         ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, sweep_ms))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
+        "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "
+                  "the lanes (was one thread per env)",
         "route": "cuda",
         "source": "diffdart_tpu_torch/ops/csrc/fused_step.cu",
         "replaces": "diffdart_tpu/ops/pallas_step.py:55",

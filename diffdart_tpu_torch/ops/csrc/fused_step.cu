@@ -1,32 +1,42 @@
 // Fused constrained timestep for Hopper (sm_90a), and its vector-Jacobian
 // product.
 //
-// Kernel 1, fused_step_kernel: one thread per env. Replaces the Pallas TPU
+// Kernel 1, fused_step_kernel: one warp per env. Replaces the Pallas TPU
 // kernel `_fwd_kernel` of diffdart_tpu/ops/pallas_step.py:55 (built by
 // build_pallas_step), whose body is diffdart_tpu/sim/tilestep.py::
 // build_tile_step. The plain PyTorch version of the same arithmetic is
 // diffdart_tpu_torch/sim/tilestep.py; this file follows it op for op and in
 // the same summation order, so the two agree to rounding (bit for bit where
 // the order is the same, since the build turns off FMA contraction:
-// -fmad=false, and keeps IEEE sin/cos/sqrt/division).
+// -fmad=false, and keeps IEEE sin/cos/sqrt/division). The step runs in three
+// stages: lane 0 runs env_front (FK through the LCP rows) into the env's
+// Front in shared memory; the warp's 32 lanes run the detached LCP solve
+// (lcp_solve_warp: scaling, Jacobi sweeps, Woodbury polish) on it, each
+// output element on one lane, with the serial solve's operations in its
+// order, so the result is the serial lcp_solve's bit for bit; lane 0 runs
+// env_back (the impulse and the integration) and writes q', v'.
 //
 // Kernel 2, fused_step_vjp_kernel: one thread per env, reverse mode on a
 // tape. Replaces the Pallas TPU kernel `_bwd_kernel` of
 // diffdart_tpu/ops/pallas_step.py:60, which is jax.vjp of the same tile step
 // with the forward recomputed in the kernel. The VJP of one step is
-// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau). Each thread runs
-// env_step once on Adj<S> values: every elementary operation appends a node
+// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau). Each thread runs the
+// step's three stages once on Adj<S> values (env_front, the serial
+// lcp_solve on primal values, env_back with the gradient attachment): every
+// elementary operation appends a node
 // (its operands' node indices and the partials of torch's backward formula)
 // to the env's tape in device memory. The thread then seeds the adjoints of
 // q', v' with gq, gv, sweeps the nodes from last to first, adding each
 // node's adjoint times its partials into its operands' adjoints, and reads
 // dq, dv, dtau from the K = nq + 2 nv leaf nodes. The gradient is taken of
-// the very code kernel 1 runs (the recording's primal is kernel 1's output
-// bit for bit), so the two cannot drift apart, and nothing of the physics is
-// written twice. The recorded operations are the plain version's, in its
-// order and with its constant folding (ops/tile.py), and the sweep runs them
-// in the order torch's engine runs the plain version's backward (highest
-// sequence number first), so the adjoint sums round as torch's do.
+// the very code kernel 1 runs (the same env_front and env_back, and a solve
+// whose warp version equals the serial one bit for bit, so the recording's
+// primal is kernel 1's output bit for bit): the two cannot drift apart, and
+// nothing of the physics is written twice. The recorded operations are the
+// plain version's, in its order and with its constant folding
+// (ops/tile.py), and the sweep runs them in the order torch's engine runs
+// the plain version's backward (highest sequence number first), so the
+// adjoint sums round as torch's do.
 //
 // The tape: node n of env e sits at n * B + e (node-major, env-minor: a
 // warp's 32 stores coalesce while its envs take the same branches), reached
@@ -73,18 +83,28 @@
 // rows, and servo / joint-friction rows with constant boxes.
 //
 // What bounds them on the H100: not DRAM. An env of kernel 1 reads 3
-// vectors and writes 2, but its LCP at D = 42, nv = 9 does tens of thousands
-// of dependent flops on per-thread arrays (J and W alone are 2 x 42 x 9
-// values) that do not fit in registers and live in local memory (L1/L2);
-// at B = 4096 there are only 128 warps for 132 SMs, so it is latency bound.
-// The VJP kernel has the same launch; its recording does kernel 1's work
-// and the gradient passes on 8-byte Adj values (twice the local-memory
-// bytes) and stores the tape, written once and read once (2 x 593 MB at
-// B = 4096, 0.35 ms at 3.35 TB/s: the floor of this design, not of the
-// work). The sweep hides what latency it can with one warp per SM: it loads
-// SWEEP_CHUNK nodes' records and adjoints at once and adds into earlier
-// chunks' adjoints by reductions it does not wait for. Both kernels state
-// their times beside the bound in PERF.md.
+// vectors and writes 2, but its LCP at D = 42, nv = 9 does about 30k
+// multiply-adds (the scaling's D^2 dot products of length nv, the sweeps'
+// and residuals' matvecs, the Woodbury passes), nearly all of them
+// independent per output element, while the front end's few thousand are a
+// chain on one thread. So kernel 1 gives each env a warp: the solve spreads
+// over 32 lanes; the env's J, M and Minv sit in shared memory (rows padded
+// to an odd stride, RowStride, so that lanes reading one row each hit
+// different banks), with the solve's scratch sized from the model's D and
+// nv, and so do lane 0's inputs and the front end's working arrays (in
+// local memory a lone lane's words sit 128 bytes apart, a cache sector
+// each); the other warps of an SM (fused_step_occupancy says how many fit)
+// overlap one warp's serial front end with their solves. That front end is
+// now what bounds kernel 1: a chain of dependent operations on one lane,
+// which more warps per SM do not shorten, so its next step is to share the
+// front end's work across the lanes (PERF.md). The VJP kernel is one
+// thread per env: its recording runs the same three stages on 8-byte Adj
+// values with the serial solve and stores the tape, written once and read
+// once (2 x 593 MB at B = 4096, 0.35 ms at 3.35 TB/s: the floor of this
+// design, not of the work). The sweep hides what latency it can with one
+// warp per SM: it loads SWEEP_CHUNK nodes' records and adjoints at once and
+// adds into earlier chunks' adjoints by reductions it does not wait for.
+// Both kernels state their times beside the bound in PERF.md.
 //
 // Types: V is the value type (S, or Adj<S> in the VJP), S the descriptor's
 // scalar (float or double).
@@ -95,8 +115,12 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define HD __host__ __device__ __forceinline__
+#define HD_NOINLINE __host__ __device__ __noinline__
 #else
+#include <algorithm>
+#include <vector>
 #define HD inline
+#define HD_NOINLINE inline
 #endif
 
 namespace fused {
@@ -491,6 +515,18 @@ HD Adj<S> straight_through(S best, bool ok, Adj<S> g) {
   return Adj<S>(best, tape_rec<S>(ok ? g.i : -1, S(1), -1, S(0)));
 }
 
+// Row stride of J, M and Minv: odd for kernel 1's plain values, so that
+// lanes reading one row each hit different shared-memory banks; the VJP's
+// Adj values live in a thread's local memory, unpadded.
+template <typename V>
+struct RowStride {
+  static constexpr int n = MAX_NV + 1;
+};
+template <typename S>
+struct RowStride<Adj<S>> {
+  static constexpr int n = MAX_NV;
+};
+
 // val<U>(x): x as a U, where U is x's type or its primal type (the detached
 // stages of the LCP read Adj arrays as primal values)
 template <typename U>
@@ -649,12 +685,15 @@ HD void quat_mul(const V* a, const V* b, V* out) {
 // ---------------- the boxed LCP ----------------
 // J, b (and the M, Minv passed in) hold values of type V; the multipliers
 // of the detached stages (sweeps, polish, probe) are primal (S), and those
-// stages read J, b, M and Minv as primal values.
+// stages read J, b, M and Minv as primal values. The per-element pieces
+// below (one output element each) serve the serial solve and the warp's
+// alike, so the two compute every element with the same operations.
 template <typename V, typename S>
 struct Lcp {
   int D, nc, nv;
   int box0;  // first constant-box row (servo, then joint friction)
-  V J[MAX_D][MAX_NV];
+  static constexpr int LD = RowStride<V>::n;
+  V J[MAX_D][LD];
   S box_c[2 * MAX_NV];
   V b[MAX_D];
   S mu[MAX_NC];
@@ -682,33 +721,98 @@ struct Lcp {
     return is_box(i) ? c : select(valid[i], c, U(0));
   }
 
-  // out = J Minv J^T lam + cfm lam, matrix-free (primal)
-  HD void matvec(const V (*Minv)[MAX_NV], const S* lam, S* out) const {
-    S jt[MAX_NV], u[MAX_NV];
-    for (int j = 0; j < nv; ++j) jt[j] = S(0);
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < nv; ++j) jt[j] = jt[j] + primal(J[i][j]) * lam[i];
-    for (int k = 0; k < nv; ++k) {
-      S acc = S(0);
-      for (int j = 0; j < nv; ++j) acc = acc + primal(Minv[k][j]) * jt[j];
-      u[k] = acc;
-    }
-    for (int i = 0; i < D; ++i) {
-      S acc = cfm * lam[i];
-      for (int j = 0; j < nv; ++j) acc = acc + primal(J[i][j]) * u[j];
-      out[i] = acc;
-    }
+  // the scaling: W[i][k] = (Minv J^T)[k, i]; J_i . w for a row w of W; the
+  // diagonal from J_i . W_i; a row's scale from its diagonal and |A| row sum
+  HD S w_elem(const V (*Minv)[LD], int i, int k) const {
+    S acc = S(0);
+    for (int j = 0; j < nv; ++j) acc = acc + primal(Minv[k][j]) * primal(J[i][j]);
+    return acc;
+  }
+  HD S jw(int i, const S* w) const {
+    S acc = S(0);
+    for (int k = 0; k < nv; ++k) acc = acc + primal(J[i][k]) * w[k];
+    return acc;
+  }
+  HD S diag_of(S jw_ii) const { return tmax(jw_ii + cfm, S(1e-12)); }
+  static HD S scale_of(S diag, S rowsum) {
+    return tclip(diag / tmax(rowsum, S(1e-12)), S(0.3), S(0.9)) / diag;
   }
 
-  HD S nat_residual(const V (*Minv)[MAX_NV], const S* lam) const {
+  // out = J Minv J^T lam + cfm lam, matrix-free (primal), element by
+  // element: jt = J^T lam, u = Minv jt, out_i = cfm lam_i + J_i . u
+  HD S jt_elem(int j, const S* lam) const {
+    S acc = S(0);
+    for (int i = 0; i < D; ++i) acc = acc + primal(J[i][j]) * lam[i];
+    return acc;
+  }
+  HD S u_elem(const V (*Minv)[LD], int k, const S* jt) const {
+    S acc = S(0);
+    for (int j = 0; j < nv; ++j) acc = acc + primal(Minv[k][j]) * jt[j];
+    return acc;
+  }
+  HD S out_elem(int i, const S* lam, const S* u) const {
+    S acc = cfm * lam[i];
+    for (int j = 0; j < nv; ++j) acc = acc + primal(J[i][j]) * u[j];
+    return acc;
+  }
+  HD void matvec(const V (*Minv)[LD], const S* lam, S* out) const {
+    S jt[MAX_NV], u[MAX_NV];
+    for (int j = 0; j < nv; ++j) jt[j] = jt_elem(j, lam);
+    for (int k = 0; k < nv; ++k) u[k] = u_elem(Minv, k, jt);
+    for (int i = 0; i < D; ++i) out[i] = out_elem(i, lam, u);
+  }
+
+  // row i of a half-sweep: its new lam from its (A lam)_i; reads lam only at
+  // i and, for a friction row, at fidx(i), a row of the other phase
+  HD S sweep_row(int i, S scale_i, S Alam_i, const S* lam) const {
+    const S cand = lam[i] - scale_i * (Alam_i + primal(b[i]));
+    return clip_row<S>(i, cand, lam);
+  }
+  // row i's term of the natural-map residual, from w_i = (A lam)_i
+  HD S residual_row(int i, S w_i, const S* lam) const {
+    const S proj = clip_row<S>(i, lam[i] - (w_i + primal(b[i])), lam);
+    return t_abs(lam[i] - proj);
+  }
+
+  HD S nat_residual(const V (*Minv)[LD], const S* lam) const {
     S w[MAX_D];
     matvec(Minv, lam, w);
     S res = S(0);
-    for (int i = 0; i < D; ++i) {
-      const S proj = clip_row<S>(i, lam[i] - (w[i] + primal(b[i])), lam);
-      res = tmax(res, t_abs(lam[i] - proj));
-    }
+    for (int i = 0; i < D; ++i) res = tmax(res, residual_row(i, w[i], lam));
     return res;
+  }
+
+  // row i's active-set masks of a Woodbury pass from iterate lam: free (Ff),
+  // friction-bound coupling (fbm) and constant-box pin; reads lam at i and,
+  // for a friction row, at fidx(i)
+  HD void pass_masks(int i, const S* lam, S& Ff, S& fbm, S& pin) const {
+    const S tol = S(1e-8);
+    pin = S(0);
+    const S tol_sc = tmax(t_abs(lam[i]), S(1)) * tol;
+    if (is_fr(i)) {
+      const S bound = mu[fidx(i)] * lam[fidx(i)];
+      const bool at_lo = lam[i] <= tol_sc - bound;
+      const bool at_hi = lam[i] >= bound - tol_sc;
+      const bool degen = at_lo && at_hi;
+      const bool free_ = !at_lo && !at_hi && valid[i];
+      const bool frb = (at_lo || at_hi) && !degen && valid[i];
+      Ff = free_ ? S(1) : S(0);
+      fbm = ((frb ? S(1) : S(0)) * (at_hi ? S(1) : S(-1))) * mu[fidx(i)];
+    } else if (is_box(i)) {
+      // constant box [-c, +c]: at-bound rows pin to +-c, entering the KKT
+      // rhs as cfm * c_pin
+      const S cb = box_c[i - box0];
+      const bool at_lo = lam[i] <= tol_sc - cb;
+      const bool at_hi = lam[i] >= cb - tol_sc;
+      const bool degen = at_lo && at_hi;
+      const bool pinned = (at_lo || at_hi) && !degen && valid[i];
+      Ff = (!at_lo && !at_hi && valid[i]) ? S(1) : S(0);
+      fbm = S(0);
+      pin = ((pinned ? S(1) : S(0)) * (at_hi ? S(1) : S(-1))) * cb;
+    } else {
+      Ff = (!(lam[i] <= tol_sc) && valid[i]) ? S(1) : S(0);
+      fbm = S(0);
+    }
   }
 
   // one active-set Woodbury pass from iterate lam (sim/tilestep.py
@@ -716,37 +820,9 @@ struct Lcp {
   // U = V the pass is differentiated through J, b and M. The masks (Ff, fbm,
   // pin) are tensors without a gradient in the plain version: mmul / madd.
   template <typename U>
-  HD void one_pass(const V (*M)[MAX_NV], const S* lam, U* out) const {
-    const S tol = S(1e-8);
+  HD void one_pass(const V (*M)[LD], const S* lam, U* out) const {
     S Ff[MAX_D], fbm[MAX_D], pin[MAX_D];
-    for (int i = 0; i < D; ++i) {
-      pin[i] = S(0);
-      const S tol_sc = tmax(t_abs(lam[i]), S(1)) * tol;
-      if (is_fr(i)) {
-        const S bound = mu[fidx(i)] * lam[fidx(i)];
-        const bool at_lo = lam[i] <= tol_sc - bound;
-        const bool at_hi = lam[i] >= bound - tol_sc;
-        const bool degen = at_lo && at_hi;
-        const bool free_ = !at_lo && !at_hi && valid[i];
-        const bool frb = (at_lo || at_hi) && !degen && valid[i];
-        Ff[i] = free_ ? S(1) : S(0);
-        fbm[i] = ((frb ? S(1) : S(0)) * (at_hi ? S(1) : S(-1))) * mu[fidx(i)];
-      } else if (is_box(i)) {
-        // constant box [-c, +c]: at-bound rows pin to +-c, entering the KKT
-        // rhs as cfm * c_pin
-        const S cb = box_c[i - box0];
-        const bool at_lo = lam[i] <= tol_sc - cb;
-        const bool at_hi = lam[i] >= cb - tol_sc;
-        const bool degen = at_lo && at_hi;
-        const bool pinned = (at_lo || at_hi) && !degen && valid[i];
-        Ff[i] = (!at_lo && !at_hi && valid[i]) ? S(1) : S(0);
-        fbm[i] = S(0);
-        pin[i] = ((pinned ? S(1) : S(0)) * (at_hi ? S(1) : S(-1))) * cb;
-      } else {
-        Ff[i] = (!(lam[i] <= tol_sc) && valid[i]) ? S(1) : S(0);
-        fbm[i] = S(0);
-      }
-    }
+    for (int i = 0; i < D; ++i) pass_masks(i, lam, Ff[i], fbm[i], pin[i]);
     // S = cfm M + J^T (I+B) F J
     U Sm[MAX_NV][MAX_NV];
     for (int a = 0; a < nv; ++a)
@@ -786,11 +862,7 @@ struct Lcp {
         for (int j = k + 1; j < nv; ++j) Sm[i][j] = Sm[i][j] - f * Sm[k][j];
         rhs[i] = rhs[i] - f * rhs[k];
       }
-    for (int i = nv - 1; i >= 0; --i) {
-      U s = rhs[i];
-      for (int j = i + 1; j < nv; ++j) s = s - Sm[i][j] * u[j];
-      u[i] = safe_div(s, Sm[i][i]);
-    }
+    back_substitute(&Sm[0][0], MAX_NV, rhs, u, nv);
     // x = (r - F J u) / cfm on the free set; lam' = (I+B) x, projected
     U x[MAX_D];
     for (int i = 0; i < D; ++i) {
@@ -807,11 +879,22 @@ struct Lcp {
     }
     for (int i = 0; i < D; ++i) out[i] = clip_row<U>(i, lam_new[i], lam_new);
   }
+
+  // u = Sm^-1 rhs for the upper triangle that the elimination left in Sm
+  // (row stride ld): a chain, on one thread
+  template <typename U>
+  static HD void back_substitute(const U* Sm, int ld, const U* rhs, U* u, int nv) {
+    for (int i = nv - 1; i >= 0; --i) {
+      U s = rhs[i];
+      for (int j = i + 1; j < nv; ++j) s = s - Sm[i * ld + j] * u[j];
+      u[i] = safe_div(s, Sm[i * ld + i]);
+    }
+  }
 };
 
 // v' = v* + Minv J^T lam
 template <typename V, typename S, typename L>
-HD void apply_impulse(const Lcp<V, S>& lcp, const V (*Minv)[MAX_NV], const V* v_star,
+HD void apply_impulse(const Lcp<V, S>& lcp, const V (*Minv)[RowStride<V>::n], const V* v_star,
                       const L* lam, V* v_new) {
   const int nv = lcp.nv;
   V jt[MAX_NV];
@@ -825,18 +908,42 @@ HD void apply_impulse(const Lcp<V, S>& lcp, const V (*Minv)[MAX_NV], const V* v_
   }
 }
 
-// One env's step from (q, v, tau) to (q_new, v_new), on values of type V.
-// GRAD (V = Adj<S> only) adds the probe pass and the differentiable
-// Woodbury pass of the gradient attachment.
-template <typename V, typename S, bool GRAD>
-HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
-                 const V* __restrict__ v, const V* __restrict__ tau, V* __restrict__ q_new,
-                 V* __restrict__ v_new) {
-  const int nb = I.nb, nq = I.nq, nv = I.nv;
+// What env_front hands the solve and env_back: the env's LCP, its mass
+// matrix and inverse, and the unconstrained velocity. Kernel 1 keeps it in
+// shared memory, the VJP kernel in the thread's local memory.
+template <typename V, typename S>
+struct Front {
+  Lcp<V, S> lcp;
+  V M[MAX_NV][RowStride<V>::n];
+  V Minv[MAX_NV][RowStride<V>::n];
+  V v_star[MAX_NV];
+};
+
+// The front end's working arrays (kernel 1: in the env's shared memory,
+// in the room the solve's scratch takes later; the VJP: local memory).
+template <typename V>
+struct FrontWork {
+  V R[MAX_NB][9], P[MAX_NB][3];
+  V Sw[MAX_NV][6], wl[6][3], vl[6][3];
+  V Vb[MAX_NB][6], cw[MAX_NB][3], Icw[MAX_NB][9];
+  V sdot[MAX_NV][6], C[MAX_NV], rhs[MAX_NV];
+  V L[MAX_NV][MAX_NV], y[MAX_NV], x[MAX_NV];
+  V v[MAX_NV], tau[MAX_NV];  // kernel 1's inputs (the VJP's are its tape leaves)
+};
+
+// The step's first stage, one env, on values of type V: FK, the mass
+// matrix and its inverse, the unconstrained velocity v*, the contacts and
+// the LCP rows, into fr (lcp.D = 0: no rows); w holds its working arrays.
+template <typename V, typename S>
+HD void env_front(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
+                  const V* __restrict__ v, const V* __restrict__ tau, Front<V, S>& fr,
+                  FrontWork<V>& w) {
+  const int nb = I.nb, nv = I.nv;
   const S dt = F.dt;
 
   // ---------------- FK ----------------
-  V R[MAX_NB][9], P[MAX_NB][3];
+  auto& R = w.R;
+  auto& P = w.P;
   for (int i = 0; i < nb; ++i) {
     const int o = I.q_off[i];
     V Rj[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
@@ -872,12 +979,13 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- world motion subspace columns Sw = (w, v) per dof -------
-  V Sw[MAX_NV][6];
+  auto& Sw = w.Sw;
   for (int i = 0; i < nb; ++i) {
     const int o = I.v_off[i];
     const int jt = I.jtype[i];
     int nrow = 0;
-    V wl[6][3], vl[6][3];
+    auto& wl = w.wl;
+    auto& vl = w.vl;
     if (jt == J_REVOLUTE) {
       nrow = 1;
       for (int k = 0; k < 3; ++k) { wl[0][k] = F.axis[i][k]; vl[0][k] = V(0); }
@@ -918,7 +1026,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- body velocities ----------------
-  V Vb[MAX_NB][6];
+  auto& Vb = w.Vb;
   for (int b = 0; b < nb; ++b) {
     for (int k = 0; k < 6; ++k) Vb[b][k] = V(0);
     for (int j = 0; j < nv; ++j)
@@ -927,7 +1035,8 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- world spatial inertia (structured) ----------------
-  V cw[MAX_NB][3], Icw[MAX_NB][9];
+  auto& cw = w.cw;
+  auto& Icw = w.Icw;
   for (int b = 0; b < nb; ++b) {
     matvec3(R[b], F.com[b], cw[b]);
     for (int k = 0; k < 3; ++k) cw[b][k] = cw[b][k] + P[b][k];
@@ -937,7 +1046,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- mass matrix ----------------
-  V M[MAX_NV][MAX_NV];
+  auto& M = fr.M;
   for (int a = 0; a < nv; ++a)
     for (int c = 0; c < nv; ++c) M[a][c] = V(0);
   for (int b = 0; b < nb; ++b) {
@@ -957,7 +1066,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- bias forces C ----------------
-  V sdot[MAX_NV][6];
+  auto& sdot = w.sdot;
   for (int j = 0; j < nv; ++j) {
     const int b = I.dof_body[j];
     V sw[3], sv1[3], sv2[3];
@@ -980,7 +1089,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
       for (int k = 0; k < 3; ++k) sdot[j][3 + k] = sdot[j][3 + k] - wd[k];
     }
   }
-  V C[MAX_NV];
+  auto& C = w.C;
   for (int i = 0; i < nv; ++i) C[i] = V(0);
   for (int b = 0; b < nb; ++b) {
     V a[6] = {0, 0, 0, F.neg_grav[0], F.neg_grav[1], F.neg_grav[2]};
@@ -1002,14 +1111,14 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   // ---------------- unconstrained velocity ----------------
-  V rhs[MAX_NV];
+  auto& rhs = w.rhs;
   for (int i = 0; i < nv; ++i) {
     V fj = (-F.damping[i]) * v[i];
     if (F.spring[i] != S(0))
       fj = fj - F.spring[i] * ((q[I.dof_qidx[i]] - F.q_rest[i]) + dt * v[i]);
     rhs[i] = tau[i] + (fj - C[i]);
   }
-  V L[MAX_NV][MAX_NV];
+  auto& L = w.L;
   for (int i = 0; i < nv; ++i)
     for (int j = 0; j <= i; ++j) {
       V s = M[i][j];
@@ -1019,9 +1128,10 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
       else
         L[i][j] = s / L[j][j];
     }
-  V Minv[MAX_NV][MAX_NV];
+  auto& Minv = fr.Minv;
   for (int col = 0; col < nv; ++col) {
-    V y[MAX_NV], x[MAX_NV];
+    auto& y = w.y;
+    auto& x = w.x;
     for (int i = 0; i < nv; ++i) {
       V s = (i == col) ? V(1) : V(0);
       for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
@@ -1034,7 +1144,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
     }
     for (int i = 0; i < nv; ++i) Minv[i][col] = x[i];
   }
-  V v_star[MAX_NV];
+  auto& v_star = fr.v_star;
   for (int i = 0; i < nv; ++i) {
     V acc = V(0);
     for (int k = 0; k < nv; ++k) acc = acc + Minv[i][k] * rhs[k];
@@ -1042,179 +1152,194 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 
   const int D = I.D;
+  Lcp<V, S>& lcp = fr.lcp;
+  lcp.D = D;
+  lcp.nc = I.nc;
+  lcp.nv = nv;
+  lcp.cfm = F.cfm;
+  if (D == 0) return;
+  const int nc = I.nc;
+  for (int i = 0; i < D; ++i)
+    for (int j = 0; j < nv; ++j) lcp.J[i][j] = V(0);
+
+  // ---------------- contacts (geom vs fixed plane) and their rows ------
+  int c = 0;
+  for (int p = 0; p < I.npair; ++p) {
+    const int b = I.pair_body[p];
+    const int gt = I.pair_type[p];
+    V Rg[9], pg[3];
+    matmul3(R[b], F.pair_rot[p], Rg);
+    matvec3(R[b], F.pair_pos[p], pg);
+    for (int k = 0; k < 3; ++k) pg[k] = pg[k] + P[b][k];
+    const S* n = F.pair_n[p];
+    const int nslot = gt == G_BOX ? 8 : (gt == G_CAPSULE ? 2 : 1);
+    for (int s = 0; s < nslot; ++s, ++c) {
+      V cpt[3], pos[3], dv[3], depth;
+      if (gt == G_BOX) {
+        // corners in (sx, sy, sz) order, each from -1 to +1
+        const S loc[3] = {F.pair_size[p][0] * ((s & 4) ? S(1) : S(-1)),
+                          F.pair_size[p][1] * ((s & 2) ? S(1) : S(-1)),
+                          F.pair_size[p][2] * ((s & 1) ? S(1) : S(-1))};
+        matvec3(Rg, loc, cpt);
+        for (int k = 0; k < 3; ++k) cpt[k] = cpt[k] + pg[k];
+        for (int k = 0; k < 3; ++k) dv[k] = cpt[k] - F.pair_p[p][k];
+        depth = -dot3(dv, n);
+        for (int k = 0; k < 3; ++k) pos[k] = cpt[k] + n[k] * (depth * S(0.5));
+      } else {
+        const S r = F.pair_size[p][0];
+        if (gt == G_CAPSULE) {
+          const S hl = F.pair_size[p][1];
+          for (int k = 0; k < 3; ++k) {
+            const V d = Rg[k * 3 + 2] * hl;
+            cpt[k] = s == 0 ? pg[k] - d : pg[k] + d;
+          }
+        } else {
+          for (int k = 0; k < 3; ++k) cpt[k] = pg[k];
+        }
+        for (int k = 0; k < 3; ++k) dv[k] = cpt[k] - F.pair_p[p][k];
+        depth = r - dot3(dv, n);
+        const V back = r - depth * S(0.5);
+        for (int k = 0; k < 3; ++k) pos[k] = cpt[k] - n[k] * back;
+      }
+      // rows: normal, t1, t2 over the body's ancestor dofs
+      for (int j = 0; j < nv; ++j) {
+        if (!I.anc[b][j]) continue;
+        V wxp[3], lin[3];
+        cross3(Sw[j], pos, wxp);
+        for (int k = 0; k < 3; ++k) lin[k] = Sw[j][3 + k] + wxp[k];
+        lcp.J[c][j] = dot3(lin, n);
+        lcp.J[nc + c][j] = dot3(lin, F.pair_t1[p]);
+        lcp.J[2 * nc + c][j] = dot3(lin, F.pair_t2[p]);
+      }
+      V target = tmin(F.erp_dt * tmax(depth - S(1e-5), V(0)), V(2));
+      if (F.pair_rest[p] != S(0)) {
+        V vn = V(0);
+        for (int j = 0; j < nv; ++j) vn = vn + lcp.J[c][j] * v[j];
+        const V bounce = F.pair_rest[p] * tmax(-vn - S(0.01), V(0));
+        target = tmax(target, bounce);
+      }
+      V bn = V(0), bt1 = V(0), bt2 = V(0);
+      for (int j = 0; j < nv; ++j) {
+        bn = bn + lcp.J[c][j] * v_star[j];
+        bt1 = bt1 + lcp.J[nc + c][j] * v_star[j];
+        bt2 = bt2 + lcp.J[2 * nc + c][j] * v_star[j];
+      }
+      lcp.b[c] = bn - target;
+      lcp.b[nc + c] = bt1;
+      lcp.b[2 * nc + c] = bt2;
+      const bool ok = depth > V(0);
+      lcp.valid[c] = lcp.valid[nc + c] = lcp.valid[2 * nc + c] = ok;
+      lcp.mu[c] = F.pair_mu[p];
+    }
+  }
+  // ---------------- joint-limit rows ----------------
+  const int nlim = I.nlim;
+  for (int li = 0; li < nlim; ++li) {
+    const int dof = I.lim_dof[li];
+    const V qd = q[I.dof_qidx[dof]];
+    const V step = qd + dt * v[dof];
+    const V viol_lo = F.lim_lo[li] - qd, pred_lo = F.lim_lo[li] - step;
+    const V viol_hi = qd - F.lim_hi[li], pred_hi = step - F.lim_hi[li];
+    const int ilo = 3 * nc + li, ihi = 3 * nc + nlim + li;
+    lcp.J[ilo][dof] = V(1);
+    lcp.b[ilo] = v_star[dof] - tmin(F.erp_dt * tmax(viol_lo, V(0)), V(2));
+    lcp.valid[ilo] = viol_lo > V(0) || pred_lo > V(0);
+    lcp.J[ihi][dof] = V(-1);
+    lcp.b[ihi] = (-v_star[dof]) - tmin(F.erp_dt * tmax(viol_hi, V(0)), V(2));
+    lcp.valid[ihi] = viol_hi > V(0) || pred_hi > V(0);
+  }
+  // ---------------- servo and joint-friction rows (constant boxes) ----
+  lcp.box0 = 3 * nc + 2 * nlim;
+  for (int k = 0; k < I.nservo + I.nfric; ++k) {
+    const int i = lcp.box0 + k;
+    const bool servo = k < I.nservo;
+    const int dof = servo ? I.servo_dof[k] : I.fric_dof[k - I.nservo];
+    lcp.J[i][dof] = V(1);
+    lcp.b[i] = servo ? v_star[dof] - F.servo_tgt[k] : v_star[dof];
+    lcp.valid[i] = true;
+    lcp.box_c[k] = F.box_c[k];
+  }
+}
+
+// The detached solve (stop-gradient), serial: scaling, phased Jacobi
+// sweeps from lam = 0, guarded Woodbury polish passes, on primal values.
+// Writes the best iterate to `best` and returns its natural-map residual.
+template <typename V, typename S>
+HD S lcp_solve(const DescI& I, const Front<V, S>& f, S* best) {
+  const Lcp<V, S>& lcp = f.lcp;
+  const int D = lcp.D, nv = lcp.nv;
+
+  // ---------------- sweep scaling from diag and |A| row sums -----------
+  S scale[MAX_D];
+  {
+    S W[MAX_D][MAX_NV];  // W[i][k] = (Minv J^T)[k, i]
+    for (int i = 0; i < D; ++i)
+      for (int k = 0; k < nv; ++k) W[i][k] = lcp.w_elem(f.Minv, i, k);
+    S diag[MAX_D], rowsum[MAX_D];
+    for (int i = 0; i < D; ++i) {
+      diag[i] = lcp.diag_of(lcp.jw(i, W[i]));
+      rowsum[i] = t_abs(diag[i]);
+    }
+    // A is symmetric: each off-diagonal entry is computed once (as
+    // J_i . W_j, i < j) and credited to both rows, in the plain version's
+    // order
+    for (int i = 0; i < D; ++i)
+      for (int j = i + 1; j < D; ++j) {
+        const S ae = t_abs(lcp.jw(i, W[j]));
+        rowsum[i] = rowsum[i] + ae;
+        rowsum[j] = rowsum[j] + ae;
+      }
+    for (int i = 0; i < D; ++i) scale[i] = lcp.scale_of(diag[i], rowsum[i]);
+  }
+
+  // ---------------- phased Jacobi sweeps (warm start) ----------------
+  S lam[MAX_D], r[MAX_D];
+  for (int i = 0; i < D; ++i) lam[i] = S(0);
+  for (int it = 0; it < I.iters; ++it)
+    for (int phase = 0; phase < 2; ++phase) {
+      lcp.matvec(f.Minv, lam, r);
+      // rows of one phase never read each other's lam, so the update is
+      // in place
+      for (int i = 0; i < D; ++i)
+        if ((int)lcp.is_fr(i) == phase) lam[i] = lcp.sweep_row(i, scale[i], r[i], lam);
+    }
+
+  // ---------------- guarded Woodbury polish passes ----------------
+  S cand[MAX_D];
+  for (int i = 0; i < D; ++i) best[i] = lam[i];
+  S best_res = lcp.nat_residual(f.Minv, best);
+  for (int pass = 0; pass < I.passes; ++pass) {
+    lcp.template one_pass<S>(f.M, lam, cand);
+    bool finite = true;
+    for (int i = 0; i < D; ++i) finite = finite && t_finite(cand[i]);
+    if (finite)
+      for (int i = 0; i < D; ++i) lam[i] = cand[i];
+    const S res = lcp.nat_residual(f.Minv, lam);
+    if (res < best_res)
+      for (int i = 0; i < D; ++i) best[i] = lam[i];
+    best_res = tmin(res, best_res);
+  }
+  return best_res;
+}
+
+// The step's last stage, one env: v' = v* + Minv J^T lam at the solve's
+// best iterate, then the position update. GRAD (V = Adj<S> only) adds the
+// probe pass and the differentiable Woodbury pass of the gradient
+// attachment. best and best_res are the solve's (unread when lcp.D = 0).
+template <typename V, typename S, bool GRAD>
+HD void env_back(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
+                 const Front<V, S>& f, const S* best, S best_res, V* __restrict__ q_new,
+                 V* __restrict__ v_new) {
+  const int nb = I.nb, nq = I.nq, nv = I.nv;
+  const S dt = F.dt;
+  const Lcp<V, S>& lcp = f.lcp;
+  const auto& M = f.M;
+  const auto& Minv = f.Minv;
+  const auto& v_star = f.v_star;
+  const int D = lcp.D;
   if (D == 0) {
     for (int i = 0; i < nv; ++i) v_new[i] = v_star[i];
   } else {
-    Lcp<V, S> lcp;
-    lcp.D = D;
-    lcp.nc = I.nc;
-    lcp.nv = nv;
-    lcp.cfm = F.cfm;
-    const int nc = I.nc;
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < nv; ++j) lcp.J[i][j] = V(0);
-
-    // ---------------- contacts (geom vs fixed plane) and their rows ------
-    int c = 0;
-    for (int p = 0; p < I.npair; ++p) {
-      const int b = I.pair_body[p];
-      const int gt = I.pair_type[p];
-      V Rg[9], pg[3];
-      matmul3(R[b], F.pair_rot[p], Rg);
-      matvec3(R[b], F.pair_pos[p], pg);
-      for (int k = 0; k < 3; ++k) pg[k] = pg[k] + P[b][k];
-      const S* n = F.pair_n[p];
-      const int nslot = gt == G_BOX ? 8 : (gt == G_CAPSULE ? 2 : 1);
-      for (int s = 0; s < nslot; ++s, ++c) {
-        V cpt[3], pos[3], dv[3], depth;
-        if (gt == G_BOX) {
-          // corners in (sx, sy, sz) order, each from -1 to +1
-          const S loc[3] = {F.pair_size[p][0] * ((s & 4) ? S(1) : S(-1)),
-                            F.pair_size[p][1] * ((s & 2) ? S(1) : S(-1)),
-                            F.pair_size[p][2] * ((s & 1) ? S(1) : S(-1))};
-          matvec3(Rg, loc, cpt);
-          for (int k = 0; k < 3; ++k) cpt[k] = cpt[k] + pg[k];
-          for (int k = 0; k < 3; ++k) dv[k] = cpt[k] - F.pair_p[p][k];
-          depth = -dot3(dv, n);
-          for (int k = 0; k < 3; ++k) pos[k] = cpt[k] + n[k] * (depth * S(0.5));
-        } else {
-          const S r = F.pair_size[p][0];
-          if (gt == G_CAPSULE) {
-            const S hl = F.pair_size[p][1];
-            for (int k = 0; k < 3; ++k) {
-              const V d = Rg[k * 3 + 2] * hl;
-              cpt[k] = s == 0 ? pg[k] - d : pg[k] + d;
-            }
-          } else {
-            for (int k = 0; k < 3; ++k) cpt[k] = pg[k];
-          }
-          for (int k = 0; k < 3; ++k) dv[k] = cpt[k] - F.pair_p[p][k];
-          depth = r - dot3(dv, n);
-          const V back = r - depth * S(0.5);
-          for (int k = 0; k < 3; ++k) pos[k] = cpt[k] - n[k] * back;
-        }
-        // rows: normal, t1, t2 over the body's ancestor dofs
-        for (int j = 0; j < nv; ++j) {
-          if (!I.anc[b][j]) continue;
-          V wxp[3], lin[3];
-          cross3(Sw[j], pos, wxp);
-          for (int k = 0; k < 3; ++k) lin[k] = Sw[j][3 + k] + wxp[k];
-          lcp.J[c][j] = dot3(lin, n);
-          lcp.J[nc + c][j] = dot3(lin, F.pair_t1[p]);
-          lcp.J[2 * nc + c][j] = dot3(lin, F.pair_t2[p]);
-        }
-        V target = tmin(F.erp_dt * tmax(depth - S(1e-5), V(0)), V(2));
-        if (F.pair_rest[p] != S(0)) {
-          V vn = V(0);
-          for (int j = 0; j < nv; ++j) vn = vn + lcp.J[c][j] * v[j];
-          const V bounce = F.pair_rest[p] * tmax(-vn - S(0.01), V(0));
-          target = tmax(target, bounce);
-        }
-        V bn = V(0), bt1 = V(0), bt2 = V(0);
-        for (int j = 0; j < nv; ++j) {
-          bn = bn + lcp.J[c][j] * v_star[j];
-          bt1 = bt1 + lcp.J[nc + c][j] * v_star[j];
-          bt2 = bt2 + lcp.J[2 * nc + c][j] * v_star[j];
-        }
-        lcp.b[c] = bn - target;
-        lcp.b[nc + c] = bt1;
-        lcp.b[2 * nc + c] = bt2;
-        const bool ok = depth > V(0);
-        lcp.valid[c] = lcp.valid[nc + c] = lcp.valid[2 * nc + c] = ok;
-        lcp.mu[c] = F.pair_mu[p];
-      }
-    }
-    // ---------------- joint-limit rows ----------------
-    const int nlim = I.nlim;
-    for (int li = 0; li < nlim; ++li) {
-      const int dof = I.lim_dof[li];
-      const V qd = q[I.dof_qidx[dof]];
-      const V step = qd + dt * v[dof];
-      const V viol_lo = F.lim_lo[li] - qd, pred_lo = F.lim_lo[li] - step;
-      const V viol_hi = qd - F.lim_hi[li], pred_hi = step - F.lim_hi[li];
-      const int ilo = 3 * nc + li, ihi = 3 * nc + nlim + li;
-      lcp.J[ilo][dof] = V(1);
-      lcp.b[ilo] = v_star[dof] - tmin(F.erp_dt * tmax(viol_lo, V(0)), V(2));
-      lcp.valid[ilo] = viol_lo > V(0) || pred_lo > V(0);
-      lcp.J[ihi][dof] = V(-1);
-      lcp.b[ihi] = (-v_star[dof]) - tmin(F.erp_dt * tmax(viol_hi, V(0)), V(2));
-      lcp.valid[ihi] = viol_hi > V(0) || pred_hi > V(0);
-    }
-    // ---------------- servo and joint-friction rows (constant boxes) ----
-    lcp.box0 = 3 * nc + 2 * nlim;
-    for (int k = 0; k < I.nservo + I.nfric; ++k) {
-      const int i = lcp.box0 + k;
-      const bool servo = k < I.nservo;
-      const int dof = servo ? I.servo_dof[k] : I.fric_dof[k - I.nservo];
-      lcp.J[i][dof] = V(1);
-      lcp.b[i] = servo ? v_star[dof] - F.servo_tgt[k] : v_star[dof];
-      lcp.valid[i] = true;
-      lcp.box_c[k] = F.box_c[k];
-    }
-
-    // ---------------- sweep scaling from diag and |A| row sums -----------
-    S scale[MAX_D];
-    {
-      S W[MAX_D][MAX_NV];  // W[i][k] = (Minv J^T)[k, i]
-      for (int i = 0; i < D; ++i)
-        for (int k = 0; k < nv; ++k) {
-          S acc = S(0);
-          for (int j = 0; j < nv; ++j) acc = acc + primal(Minv[k][j]) * primal(lcp.J[i][j]);
-          W[i][k] = acc;
-        }
-      S diag[MAX_D], rowsum[MAX_D];
-      for (int i = 0; i < D; ++i) {
-        S acc = S(0);
-        for (int k = 0; k < nv; ++k) acc = acc + primal(lcp.J[i][k]) * W[i][k];
-        diag[i] = tmax(acc + F.cfm, S(1e-12));
-        rowsum[i] = t_abs(diag[i]);
-      }
-      // A is symmetric: each off-diagonal entry is computed once (as
-      // J_i . W_j, i < j) and credited to both rows, in the plain version's
-      // order
-      for (int i = 0; i < D; ++i)
-        for (int j = i + 1; j < D; ++j) {
-          S acc = S(0);
-          for (int k = 0; k < nv; ++k) acc = acc + primal(lcp.J[i][k]) * W[j][k];
-          const S ae = t_abs(acc);
-          rowsum[i] = rowsum[i] + ae;
-          rowsum[j] = rowsum[j] + ae;
-        }
-      for (int i = 0; i < D; ++i)
-        scale[i] = tclip(diag[i] / tmax(rowsum[i], S(1e-12)), S(0.3), S(0.9)) / diag[i];
-    }
-
-    // ---------------- phased Jacobi sweeps (warm start) ----------------
-    S lam[MAX_D], r[MAX_D];
-    for (int i = 0; i < D; ++i) lam[i] = S(0);
-    for (int it = 0; it < I.iters; ++it)
-      for (int phase = 0; phase < 2; ++phase) {
-        lcp.matvec(Minv, lam, r);
-        // rows of one phase never read each other's lam, so the update is
-        // in place
-        for (int i = 0; i < D; ++i) {
-          if ((int)lcp.is_fr(i) != phase) continue;
-          const S cand = lam[i] - scale[i] * (r[i] + primal(lcp.b[i]));
-          lam[i] = lcp.template clip_row<S>(i, cand, lam);
-        }
-      }
-
-    // ---------------- guarded Woodbury polish passes ----------------
-    S best[MAX_D], cand[MAX_D];
-    for (int i = 0; i < D; ++i) best[i] = lam[i];
-    S best_res = lcp.nat_residual(Minv, best);
-    for (int pass = 0; pass < I.passes; ++pass) {
-      lcp.template one_pass<S>(M, lam, cand);
-      bool finite = true;
-      for (int i = 0; i < D; ++i) finite = finite && t_finite(cand[i]);
-      if (finite)
-        for (int i = 0; i < D; ++i) lam[i] = cand[i];
-      const S res = lcp.nat_residual(Minv, lam);
-      if (res < best_res)
-        for (int i = 0; i < D; ++i) best[i] = lam[i];
-      best_res = tmin(res, best_res);
-    }
-
     if constexpr (GRAD) {
       // ---------------- gradient attachment ----------------
       // probe pass at best (primal): envs where it is non-finite or drifts
@@ -1230,6 +1355,7 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
       }
       const bool ok = finite && drift <= (best_res + S(1)) * S(1e-5);
       // the differentiable pass, on sanitized inputs where not ok
+      S cand[MAX_D];
       for (int i = 0; i < D; ++i) cand[i] = ok ? best[i] : S(0);
       V lam_g[MAX_D];
       lcp.template one_pass<V>(M, cand, lam_g);
@@ -1266,24 +1392,333 @@ HD void env_step(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
   }
 }
 
-// Kernel 1's per-env work: SoA (k, B) in and out.
+// ---------------- the warp's solve (kernel 1) ----------------
+// One warp per env. Each phase below is a lanes() call: lane l takes the
+// phase's output elements l, l + 32, ... and computes each of them alone,
+// with the serial solve's operations in its order (the Lcp pieces above, or
+// Lcp::one_pass's expressions written out for one element), so every
+// element is the serial solve's bit for bit. A phase reads only what
+// earlier phases wrote, and the lanes meet at __syncwarp() after each
+// phase. The host build runs a phase's 32 lanes one after another (the
+// meeting is the end of that loop), so the CPU tests run the card's
+// partition: a missed or doubled element shows there, and only races are
+// left for the card to find.
+constexpr int WARP = 32;
+
+template <typename Fn>
+HD void lanes(Fn&& fn) {
+#ifdef __CUDA_ARCH__
+  fn((int)(threadIdx.x % WARP));
+  __syncwarp();
+#else
+  for (int lane = 0; lane < WARP; ++lane) fn(lane);
+#endif
+}
+
+// fn() on lane 0 alone (a chain), then the lanes meet
+template <typename Fn>
+HD void lane0(Fn&& fn) {
+#ifdef __CUDA_ARCH__
+  if (threadIdx.x % WARP == 0) fn();
+  __syncwarp();
+#else
+  fn();
+#endif
+}
+
+// the lanes meet outside a phase: after each has read a reduction's
+// partials, before a later phase may write them again
+HD void meet() {
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+}
+
+// Kernel 1's scratch of one env, in shared memory after its Front, sized
+// from the model's D and nv: lane 0's q and the solve's kept vectors, then
+// one room that the front end's working arrays, the scaling's W, |A|
+// triangle and diagonal, and a Woodbury pass's arrays take in turn.
+template <typename S>
+struct WarpScratch {
+  S *q, *lam, *best, *cand, *scale, *red, *jt, *u;
+  S* work;  // the front end's FrontWork<S>
+  S *W, *tri, *diag;
+  S *Ff, *fbm, *pin, *r, *ibr, *x, *lam_new, *Sm, *rhs, *uu;
+
+  // lays the arrays out from base (null: counts only); returns the count
+  HD int carve(S* base, int D, int nv) {
+    int n = 0, end = 0;
+    auto take = [&](S*& p, int k) {
+      p = base != nullptr ? base + n : nullptr;
+      n += k;
+      end = n > end ? n : end;
+    };
+    take(q, MAX_NQ), take(lam, D), take(best, D), take(cand, D), take(scale, D), take(red, WARP);
+    take(jt, nv), take(u, nv);
+    const int room = n;
+    take(work, (int)(sizeof(FrontWork<S>) / sizeof(S)));
+    n = room;
+    take(W, D * nv), take(tri, D * (D - 1) / 2), take(diag, D);
+    n = room;
+    take(Ff, D), take(fbm, D), take(pin, D), take(r, D), take(ibr, D), take(x, D);
+    take(lam_new, D), take(Sm, nv * nv), take(rhs, nv), take(uu, nv);
+    return end;
+  }
+};
+
+// |A_ij| for i < j in the scratch's upper triangle (row-major)
+HD int tri_at(int i, int j, int D) { return i * D - i * (i + 1) / 2 + (j - i - 1); }
+
+template <typename S>
+HD int front_bytes() { return (int)((sizeof(Front<S, S>) + 15) / 16 * 16); }
+
+// shared memory of one env (one warp) of kernel 1: its Front, then the
+// solve's scratch; a multiple of 16 bytes
+template <typename S>
+HD int env_smem_bytes(int D, int nv) {
+  WarpScratch<S> s;
+  const int n = s.carve(nullptr, D, nv);
+  return front_bytes<S>() + (int)((n * sizeof(S) + 15) / 16 * 16);
+}
+
+// jt = J^T lam (one lane per element), then u = Minv jt
+template <typename S>
+HD void warp_jt_u(const Front<S, S>& f, const WarpScratch<S>& s, const S* lam) {
+  const Lcp<S, S>& lcp = f.lcp;
+  lanes([&](int lane) {
+    for (int j = lane; j < lcp.nv; j += WARP) s.jt[j] = lcp.jt_elem(j, lam);
+  });
+  lanes([&](int lane) {
+    for (int k = lane; k < lcp.nv; k += WARP) s.u[k] = lcp.u_elem(f.Minv, k, s.jt);
+  });
+}
+
+// The natural-map residual of lam. Each lane takes the max over its rows,
+// and the lanes' maxima combine in lane order: max is exact (tmax returns
+// one of its operands), so any order gives the serial result (a NaN
+// anywhere gives a NaN, whose payload may differ; a NaN residual compares
+// false either way, and kernel 1 writes no residual).
+template <typename S>
+HD S warp_residual(const Front<S, S>& f, const WarpScratch<S>& s, const S* lam) {
+  const Lcp<S, S>& lcp = f.lcp;
+  warp_jt_u(f, s, lam);
+  lanes([&](int lane) {
+    S part = S(0);
+    for (int i = lane; i < lcp.D; i += WARP)
+      part = tmax(part, lcp.residual_row(i, lcp.out_elem(i, lam, s.u), lam));
+    s.red[lane] = part;
+  });
+  S res = S(0);
+  for (int l = 0; l < WARP; ++l) res = tmax(res, s.red[l]);
+  meet();
+  return res;
+}
+
+// One Woodbury pass from lam into out: Lcp::one_pass<S>, element by
+// element. Returns whether every element of out is finite (&& of the lanes'
+// &&, exact in any order).
+template <typename S>
+HD bool warp_one_pass(const Front<S, S>& f, const WarpScratch<S>& s, const S* lam, S* out) {
+  const Lcp<S, S>& lcp = f.lcp;
+  const int D = lcp.D, nv = lcp.nv;
+  const S cfm = lcp.cfm;
+  lanes([&](int lane) {  // the row masks and r = -F b
+    for (int i = lane; i < D; i += WARP) {
+      lcp.pass_masks(i, lam, s.Ff[i], s.fbm[i], s.pin[i]);
+      s.r[i] = s.Ff[i] * -lcp.b[i];
+    }
+  });
+  lanes([&](int lane) {
+    // Sm = cfm M + J^T (I+B) F J, entry (a, c) on one lane, summed over the
+    // rows in order with row i's X rebuilt as one_pass builds it
+    for (int t = lane; t < nv * nv; t += WARP) {
+      const int a = t / nv, c = t % nv;
+      S acc = cfm * f.M[a][c];
+      for (int i = 0; i < D; ++i) {
+        S x = s.Ff[i] * lcp.J[i][c];
+        if (lcp.is_fr(i)) {
+          const int n = lcp.fidx(i);
+          x = x + (s.fbm[i] * s.Ff[n]) * lcp.J[n][c];
+        }
+        acc = acc + lcp.J[i][a] * x;
+      }
+      s.Sm[t] = acc;
+    }
+    // (I+B) r + cfm pin
+    for (int i = lane; i < D; i += WARP) {
+      S t = s.r[i];
+      if (lcp.is_fr(i)) t = t + s.fbm[i] * s.r[lcp.fidx(i)];
+      if (lcp.is_box(i)) t = t + cfm * s.pin[i];
+      s.ibr[i] = t;
+    }
+  });
+  lanes([&](int lane) {  // rhs = J^T ((I+B) r + cfm pin)
+    for (int j = lane; j < nv; j += WARP) {
+      S acc = S(0);
+      for (int i = 0; i < D; ++i) acc = acc + lcp.J[i][j] * s.ibr[i];
+      s.rhs[j] = acc;
+    }
+  });
+  // elimination, one pivot per phase: each element right of the pivot
+  // column in a row below it (and that row's rhs) on one lane; the row's
+  // factor is recomputed by each of its lanes, bit for bit the same
+  for (int k = 0; k < nv - 1; ++k) {
+    const int w = nv - k;  // columns k+1 .. nv-1, then the rhs
+    lanes([&](int lane) {
+      for (int t = lane; t < (nv - 1 - k) * w; t += WARP) {
+        const int i = k + 1 + t / w, j = k + 1 + t % w;
+        const S sik = s.Sm[i * nv + k];
+        if (is_zero(sik)) continue;
+        const S fct = safe_div(sik, s.Sm[k * nv + k]);
+        if (j < nv)
+          s.Sm[i * nv + j] = s.Sm[i * nv + j] - fct * s.Sm[k * nv + j];
+        else
+          s.rhs[i] = s.rhs[i] - fct * s.rhs[k];
+      }
+    });
+  }
+  lane0([&] { Lcp<S, S>::back_substitute(s.Sm, nv, s.rhs, s.uu, nv); });
+  lanes([&](int lane) {  // x = (r - F J u) / cfm on the free set
+    for (int i = lane; i < D; i += WARP) {
+      S ju = S(0);
+      for (int j = 0; j < nv; ++j) ju = ju + lcp.J[i][j] * s.uu[j];
+      s.x[i] = s.Ff[i] * ((s.r[i] - s.Ff[i] * ju) / cfm);
+    }
+  });
+  lanes([&](int lane) {  // lam' = (I+B) x + pin
+    for (int i = lane; i < D; i += WARP) {
+      S t = s.x[i];
+      if (lcp.is_fr(i)) t = t + s.fbm[i] * s.x[lcp.fidx(i)];
+      if (lcp.is_box(i)) t = t + s.pin[i];
+      s.lam_new[i] = t;
+    }
+  });
+  lanes([&](int lane) {  // projected
+    bool fin = true;
+    for (int i = lane; i < D; i += WARP) {
+      out[i] = lcp.template clip_row<S>(i, s.lam_new[i], s.lam_new);
+      fin = fin && t_finite(out[i]);
+    }
+    s.red[lane] = fin ? S(1) : S(0);
+  });
+  bool finite = true;
+  for (int l = 0; l < WARP; ++l) finite = finite && s.red[l] != S(0);
+  meet();
+  return finite;
+}
+
+// lcp_solve on a warp: the same scaling, sweeps and polish passes, bit for
+// bit, with the best iterate in s.best; returns its residual.
+template <typename S>
+HD S lcp_solve_warp(const DescI& I, const Front<S, S>& f, const WarpScratch<S>& s) {
+  const Lcp<S, S>& lcp = f.lcp;
+  const int D = lcp.D, nv = lcp.nv;
+  if (D == 0) return S(0);
+
+  // ---------------- sweep scaling from diag and |A| row sums -----------
+  lanes([&](int lane) {  // W, element t = (i, k) on lane t % 32
+    int i = lane / nv, k = lane % nv;
+    for (int t = lane; t < D * nv; t += WARP) {
+      s.W[t] = lcp.w_elem(f.Minv, i, k);
+      for (k += WARP; k >= nv; k -= nv) ++i;
+    }
+  });
+  lanes([&](int lane) {
+    for (int i = lane; i < D; i += WARP) s.diag[i] = lcp.diag_of(lcp.jw(i, s.W + i * nv));
+    // |A_ij| = |J_i . W_j| for i < j: the triangle's entry t (row-major) on
+    // lane t % 32, walking row i at offset o = j - i - 1
+    int i = 0, o = lane;
+    for (; i < D - 1 && o >= D - 1 - i; ++i) o -= D - 1 - i;
+    for (int t = lane; i < D - 1; t += WARP) {
+      s.tri[t] = t_abs(lcp.jw(i, s.W + (i + 1 + o) * nv));
+      for (o += WARP; i < D - 1 && o >= D - 1 - i; ++i) o -= D - 1 - i;
+    }
+  });
+  // row r's sum on one lane, in the serial order of credits: |diag_r|, then
+  // |A_ir| for i < r (down column r of the triangle), then |A_rj| for j > r
+  // (along its row r)
+  lanes([&](int lane) {
+    for (int r = lane; r < D; r += WARP) {
+      S rs = t_abs(s.diag[r]);
+      for (int i = 0, at = r - 1; i < r; at += D - i - 2, ++i) rs = rs + s.tri[at];
+      for (int at = tri_at(r, r + 1, D), j = r + 1; j < D; ++j, ++at) rs = rs + s.tri[at];
+      s.scale[r] = lcp.scale_of(s.diag[r], rs);
+      s.lam[r] = S(0);
+    }
+  });
+
+  // ---------------- phased Jacobi sweeps (warm start) ----------------
+  for (int it = 0; it < I.iters; ++it)
+    for (int phase = 0; phase < 2; ++phase) {
+      warp_jt_u(f, s, s.lam);
+      // row i's lane takes (A lam)_i and updates lam_i in place: a row reads
+      // lam only at itself and, for a friction row, at its normal row,
+      // which only the other phase writes
+      lanes([&](int lane) {
+        for (int i = lane; i < D; i += WARP)
+          if ((int)lcp.is_fr(i) == phase)
+            s.lam[i] = lcp.sweep_row(i, s.scale[i], lcp.out_elem(i, s.lam, s.u), s.lam);
+      });
+    }
+
+  // ---------------- guarded Woodbury polish passes ----------------
+  lanes([&](int lane) {
+    for (int i = lane; i < D; i += WARP) s.best[i] = s.lam[i];
+  });
+  S best_res = warp_residual(f, s, s.best);
+  for (int pass = 0; pass < I.passes; ++pass) {
+    if (warp_one_pass(f, s, s.lam, s.cand))
+      lanes([&](int lane) {
+        for (int i = lane; i < D; i += WARP) s.lam[i] = s.cand[i];
+      });
+    const S res = warp_residual(f, s, s.lam);
+    if (res < best_res)
+      lanes([&](int lane) {
+        for (int i = lane; i < D; i += WARP) s.best[i] = s.lam[i];
+      });
+    best_res = tmin(res, best_res);
+  }
+  return best_res;
+}
+
+// Kernel 1's per-env work, on one warp (the host build: its lanes in turn):
+// SoA (k, B) in and out. sh: the env's shared memory, env_smem_bytes(D, nv)
+// bytes, which also holds lane 0's inputs and the front end's working
+// arrays (in local memory a lone lane's words would sit 128 bytes apart,
+// one cache sector each). front_only: stop after env_front and write v* to v_out, q_out
+// untouched (the front end's share of the time).
 template <typename S>
 HD void env_fwd(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
                 const S* __restrict__ v_in, const S* __restrict__ tau_in, S* __restrict__ q_out,
-                S* __restrict__ v_out, int B, int e) {
+                S* __restrict__ v_out, int B, int e, unsigned char* sh, bool front_only) {
   const int nq = I.nq, nv = I.nv;
-  S q[MAX_NQ], v[MAX_NV], tau[MAX_NV], qn[MAX_NQ], vn[MAX_NV];
-  for (int k = 0; k < nq; ++k) q[k] = q_in[(int64_t)k * B + e];
-  for (int k = 0; k < nv; ++k) {
-    v[k] = v_in[(int64_t)k * B + e];
-    tau[k] = tau_in[(int64_t)k * B + e];
-  }
-  env_step<S, S, false>(I, F, q, v, tau, qn, vn);
-  for (int k = 0; k < nq; ++k) q_out[(int64_t)k * B + e] = qn[k];
-  for (int k = 0; k < nv; ++k) v_out[(int64_t)k * B + e] = vn[k];
+  Front<S, S>& f = *reinterpret_cast<Front<S, S>*>(sh);
+  WarpScratch<S> s;
+  s.carve(reinterpret_cast<S*>(sh + front_bytes<S>()), I.D, nv);
+  S* q = s.q;
+  lane0([&] {
+    FrontWork<S>& w = *reinterpret_cast<FrontWork<S>*>(s.work);
+    for (int k = 0; k < nq; ++k) q[k] = q_in[(int64_t)k * B + e];
+    for (int k = 0; k < nv; ++k) {
+      w.v[k] = v_in[(int64_t)k * B + e];
+      w.tau[k] = tau_in[(int64_t)k * B + e];
+    }
+    env_front<S, S>(I, F, q, w.v, w.tau, f, w);
+    if (front_only)
+      for (int k = 0; k < nv; ++k) v_out[(int64_t)k * B + e] = f.v_star[k];
+  });
+  if (front_only) return;
+  const S best_res = lcp_solve_warp<S>(I, f, s);
+  lane0([&] {
+    S qn[MAX_NQ], vn[MAX_NV];
+    env_back<S, S, false>(I, F, q, f, s.best, best_res, qn, vn);
+    for (int k = 0; k < nq; ++k) q_out[(int64_t)k * B + e] = qn[k];
+    for (int k = 0; k < nv; ++k) v_out[(int64_t)k * B + e] = vn[k];
+  });
 }
 
-// The VJP kernel's per-env work: record env_step on Adj values (the K =
+// The VJP kernel's per-env work: record the step's three stages on Adj
+// values (the serial solve between them records nothing; the K =
 // nq + 2 nv inputs are the tape's first K nodes), seed the adjoints of the
 // outputs with (gq, gv), sweep the tape from its last node to its first, and
 // read (dq | dv | dtau) from the K leaves. `status` gets the largest node
@@ -1310,11 +1745,13 @@ HD void note_count(int* status, int n, bool over) {
 // node waits on a store. Every adjoint still receives its contributions in
 // the order torch's engine adds them, by decreasing consumer index: those
 // of later chunks (in memory, loaded with the chunk), then those of its own
-// chunk, in order.
+// chunk, in order. A function of its own on the card (not inlined into the
+// recording), so that ptxas schedules its loads apart from the recording's
+// register pressure.
 constexpr int SWEEP_CHUNK = 8;
 
 template <typename S>
-HD void sweep(const Node<S>* __restrict__ nodes, S* __restrict__ adj, int count, int K,
+HD_NOINLINE void sweep(const Node<S>* __restrict__ nodes, S* __restrict__ adj, int count, int K,
               int64_t B, int e) {
   for (int top = count - 1; top >= K; top -= SWEEP_CHUNK) {
     const int lo = top - SWEEP_CHUNK + 1 > K ? top - SWEEP_CHUNK + 1 : K;
@@ -1368,7 +1805,12 @@ HD void env_vjp(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
   for (int k = 0; k < nv; ++k) v[k] = V(v_in[(int64_t)k * B + e], tape_rec<S>(-1, S(0), -1, S(0)));
   for (int k = 0; k < nv; ++k)
     tau[k] = V(tau_in[(int64_t)k * B + e], tape_rec<S>(-1, S(0), -1, S(0)));
-  env_step<V, S, true>(I, F, q, v, tau, qn, vn);
+  Front<V, S> f;
+  FrontWork<V> fw;
+  env_front<V, S>(I, F, q, v, tau, f, fw);
+  S best[MAX_D];
+  const S best_res = f.lcp.D > 0 ? lcp_solve<V, S>(I, f, best) : S(0);
+  env_back<V, S, true>(I, F, q, f, best, best_res, qn, vn);
   const int count = t.n;
   note_count(status, count, tape != nullptr && count > cap);
   if (tape == nullptr || count > cap) return;
@@ -1391,14 +1833,16 @@ HD void env_vjp(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
 }
 
 #ifdef __CUDACC__
+// one block of one warp per env, with env_bytes of dynamic shared memory
+// (blocks of several envs timed the same)
 template <typename S>
-__global__ void __launch_bounds__(32) fused_step_kernel(
+__global__ void __launch_bounds__(WARP) fused_step_kernel(
     const DescI* __restrict__ di, const DescF<S>* __restrict__ df, const S* __restrict__ q,
     const S* __restrict__ v, const S* __restrict__ tau, S* __restrict__ qo, S* __restrict__ vo,
-    int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  env_fwd<S>(*di, *df, q, v, tau, qo, vo, B, e);
+    int B, int env_bytes, int front_only) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (env_smem_bytes<S>(di->D, di->nv) > env_bytes) __trap();  // the launcher sized another model
+  env_fwd<S>(*di, *df, q, v, tau, qo, vo, B, blockIdx.x, smem, front_only != 0);
 }
 
 template <typename S>
@@ -1412,15 +1856,50 @@ __global__ void __launch_bounds__(32) fused_step_vjp_kernel(
   env_vjp<S>(*di, *df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status, B, cap, e);
 }
 
-// one warp per block: B = 4096 spreads over 128 SMs
+// the current device's opt-in shared memory per block, in bytes
+inline long long smem_limit() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+// Kernel 1's block for a model of D rows and nv dofs: its dynamic shared
+// memory in bytes, opted in above the default 48 KB (an error code when the
+// card cannot give it).
+template <typename S>
+static int block_smem(int D, int nv, int* smem) {
+  *smem = env_smem_bytes<S>(D, nv);
+  if (*smem > smem_limit()) return (int)cudaErrorInvalidValue;
+  if (*smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(fused_step_kernel<S>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return 0;
+}
+
 template <typename S>
 static int launch(const void* di, const void* df, const void* q, const void* v, const void* tau,
-                  void* qo, void* vo, int B, void* stream) {
+                  void* qo, void* vo, int B, int D, int nv, int front_only, void* stream) {
   if (B <= 0) return 0;
-  fused_step_kernel<S><<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+  int smem = 0;
+  const int err = block_smem<S>(D, nv, &smem);
+  if (err) return err;
+  fused_step_kernel<S><<<B, WARP, smem, (cudaStream_t)stream>>>(
       (const DescI*)di, (const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau, (S*)qo,
-      (S*)vo, B);
+      (S*)vo, B, smem, front_only);
   return (int)cudaGetLastError();
+}
+
+// kernel 1's resident warps (blocks) per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename S>
+static int occupancy(int D, int nv, int* warps) {
+  int smem = 0;
+  const int err = block_smem<S>(D, nv, &smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(warps, fused_step_kernel<S>, WARP,
+                                                             smem);
 }
 
 template <typename S>
@@ -1437,13 +1916,21 @@ static int launch_vjp(const void* di, const void* df, const void* q, const void*
 }
 #else
 // Host build of the same per-env code, for checking the arithmetic on a
-// machine without a GPU (tests/test_torch_fused_step.py).
+// machine without a GPU (tests/test_torch_fused_step.py): kernel 1's warp
+// runs its 32 lanes in turn (lanes()), one env after another, on shared
+// memory filled with NaNs (0xff bytes) before each env, so that an element
+// no lane wrote poisons the result. D and nv must be the descriptor's.
 template <typename S>
 static int launch(const void* di, const void* df, const void* q, const void* v, const void* tau,
-                  void* qo, void* vo, int B, void*) {
-  for (int e = 0; e < B; ++e)
-    env_fwd<S>(*(const DescI*)di, *(const DescF<S>*)df, (const S*)q, (const S*)v,
-               (const S*)tau, (S*)qo, (S*)vo, B, e);
+                  void* qo, void* vo, int B, int D, int nv, int front_only, void*) {
+  const DescI& I = *(const DescI*)di;
+  if (D != I.D || nv != I.nv) return 1;
+  std::vector<unsigned char> sh(env_smem_bytes<S>(D, nv));
+  for (int e = 0; e < B; ++e) {
+    std::fill(sh.begin(), sh.end(), (unsigned char)0xff);
+    env_fwd<S>(I, *(const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau, (S*)qo, (S*)vo,
+               B, e, sh.data(), front_only != 0);
+  }
   return 0;
 }
 
@@ -1492,14 +1979,35 @@ void fused_step_layout(int* out) {
   out[11] = (int)sizeof(fused::Node<double>);
 }
 
+// (q', v') = step(q, v, tau), one warp per env; D and nv are the
+// descriptor's (they size the shared memory). front_only != 0: stop after
+// the front end and write v* to vo (q' is not written). Returns a CUDA
+// error code (0 = launched), the refusal of the shared memory included.
 int fused_step_f32(const void* di, const void* df, const void* q, const void* v,
-                   const void* tau, void* qo, void* vo, int B, void* stream) {
-  return fused::launch<float>(di, df, q, v, tau, qo, vo, B, stream);
+                   const void* tau, void* qo, void* vo, int B, int D, int nv, int front_only,
+                   void* stream) {
+  return fused::launch<float>(di, df, q, v, tau, qo, vo, B, D, nv, front_only, stream);
 }
 
 int fused_step_f64(const void* di, const void* df, const void* q, const void* v,
-                   const void* tau, void* qo, void* vo, int B, void* stream) {
-  return fused::launch<double>(di, df, q, v, tau, qo, vo, B, stream);
+                   const void* tau, void* qo, void* vo, int B, int D, int nv, int front_only,
+                   void* stream) {
+  return fused::launch<double>(di, df, q, v, tau, qo, vo, B, D, nv, front_only, stream);
+}
+
+// kernel 1's footprint for a model of D rows and nv dofs in values of
+// elem_bytes bytes: out = [shared bytes per env (one warp, one block),
+// resident warps per SM] (0 in the host build). Returns a CUDA error code.
+int fused_step_occupancy(int elem_bytes, int D, int nv, int* out) {
+  out[0] = elem_bytes == 4 ? fused::env_smem_bytes<float>(D, nv)
+                           : fused::env_smem_bytes<double>(D, nv);
+#ifdef __CUDACC__
+  return elem_bytes == 4 ? fused::occupancy<float>(D, nv, out + 1)
+                         : fused::occupancy<double>(D, nv, out + 1);
+#else
+  out[1] = 0;
+  return 0;
+#endif
 }
 #endif
 

@@ -162,7 +162,9 @@ def _load(kind: str) -> ctypes.CDLL:
     lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_step_layout.restype = None
     for name in ("fused_step_f32", "fused_step_f64"):
-        _build.declare(getattr(lib, name), 7, 1)
+        _build.declare(getattr(lib, name), 7, 4)
+    lib.fused_step_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_step_occupancy.restype = ctypes.c_int
     for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
         _build.declare(getattr(lib, name), 14, 2)
     want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
@@ -181,16 +183,29 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def occupancy(kind: str, dtype, D: int, nv: int) -> dict:
+    """The step kernel's footprint for a model of D LCP rows and nv dofs:
+    shared memory per env (one warp, one block) and, on the card
+    (kind='cuda'), the warps that fit on one SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 in the host build)."""
+    out = (ctypes.c_int * 2)()
+    err = _load(kind).fused_step_occupancy(torch.finfo(dtype).bits // 8, D, nv, out)
+    if err:
+        raise RuntimeError(f"fused_step occupancy query failed: CUDA error {err}")
+    return dict(zip(("env_bytes", "warps_per_sm"), out))
+
+
 class _FusedStepKernel:
-    """Wrapper of the CUDA kernel. `launches` counts kernel launches, and
-    nothing else."""
+    """Wrapper of the CUDA kernel (one warp per env). `launches` counts
+    kernel launches, and nothing else."""
 
     name = "fused_step"
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, desc_i, desc_f, q, v, tau):
+    def __call__(self, desc_i, desc_f, q, v, tau, D):
+        """D: the descriptor's LCP rows (they size the shared memory)."""
         lib = _load("cuda")
         fn = lib.fused_step_f32 if q.dtype == torch.float32 else lib.fused_step_f64
         qo = torch.empty_like(q)
@@ -199,7 +214,7 @@ class _FusedStepKernel:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(desc_i.data_ptr(), desc_f.data_ptr(), q.data_ptr(), v.data_ptr(),
-                     tau.data_ptr(), qo.data_ptr(), vo.data_ptr(), B, stream)
+                     tau.data_ptr(), qo.data_ptr(), vo.data_ptr(), B, D, v.shape[0], 0, stream)
         if err:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -353,6 +368,7 @@ class FusedStep:
         self.plain = build_tile_step(model, output="stacked")
         self.unsupported_reason = kernel_unsupported_reason(model)  # None: the kernels run it
         self._packed = None if self.unsupported_reason else pack_descriptor(model)
+        self.D = None if self._packed is None else int(self._packed[0][8])  # LCP rows
         self._desc = {}  # (device, dtype) -> (DescI tensor, DescF tensor)
         self._tape = {}  # dtype -> the VJP kernel's tape capacity (nodes per env)
 
@@ -367,7 +383,7 @@ class FusedStep:
         return self._desc[key]
 
     def _launch(self, q, v, tau):
-        return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau)
+        return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, self.D)
 
     def tape_capacity(self, q, v, tau):
         """The VJP kernel's tape capacity for this model in q's dtype, from
@@ -443,23 +459,24 @@ def build_fused_step(model: Model) -> FusedStep:
     return step
 
 
-def _host_f64(*xs):
-    return [np.ascontiguousarray(x.detach().cpu().numpy(), np.float64) for x in xs]
-
-
-def host_kernel_step(model: Model, q, v, tau):
-    """The kernel's per-env code compiled for the host CPU (ops/_build.py,
-    kind='host') on float64 SoA tensors: checks the kernel's arithmetic
-    where there is no GPU. Not on any execution path."""
+def host_kernel_step(model: Model, q, v, tau, dtype=torch.float64, front_only=False):
+    """The step kernel's per-env code compiled for the host CPU (ops/_build.py,
+    kind='host'), its warp's 32 lanes run in turn, on SoA tensors of
+    `dtype`: (q', v'). front_only: the launch that stops after the front end,
+    which returns (None, v*). Checks the kernel's arithmetic and its lane
+    partition where there is no GPU. Not on any execution path."""
     lib = _load("host")
+    fn = lib.fused_step_f32 if dtype == torch.float32 else lib.fused_step_f64
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
     di, df = pack_descriptor(model)
-    q, v, tau = _host_f64(q, v, tau)
+    df = df.astype(np_dtype)
+    q, v, tau = (np.ascontiguousarray(x.detach().cpu().numpy(), np_dtype) for x in (q, v, tau))
     qo, vo = np.empty_like(q), np.empty_like(v)
     ptr = [a.ctypes.data for a in (di, df, q, v, tau, qo, vo)]
-    err = lib.fused_step_f64(*ptr, q.shape[1], None)
+    err = fn(*ptr, q.shape[1], int(di[8]), model.nv, int(front_only), None)
     if err:
         raise RuntimeError(f"host fused_step failed: {err}")
-    return torch.from_numpy(qo), torch.from_numpy(vo)
+    return None if front_only else torch.from_numpy(qo), torch.from_numpy(vo)
 
 
 def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float64):

@@ -16,7 +16,9 @@ reverse-mode autograd of the plain float32 step, the kernel's own mode, at
 a median env error of at most 1e-4 and >= 90% of envs within 1e-2. A tape
 one node short raises, for one launch and, once per backward pass, for a
 rollout. rollout_fast on a model over the fused kernel's
-caps (a 17-body chain) warns and runs the vmap stack.
+caps (a 17-body chain) warns and runs the vmap stack. The step kernel (one
+warp per env) equals the VJP recording's primal bit for bit, and its C
+launcher refuses a block over the card's shared memory.
 
 KERNEL_MODELS covers every joint, contact and row type of the kernel's
 subset; tests/test_torch_fused_step.py runs the same models through the
@@ -145,6 +147,38 @@ def test_kernel_matches_plain_version(model, dtype):
         ok = ((qk - qp).abs().amax(0) <= 1e-4) & ((vk - vp).abs().amax(0) <= 5e-2)
         assert torch.isfinite(qk).all() and torch.isfinite(vk).all()
         assert ok.float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_launcher_and_front_only(dtype):
+    """The step kernel (one warp per env) through its C launcher, odd B: its
+    output is the wrapper's; a launch sized for more shared memory than the
+    card has (400 LCP rows) is refused before it runs; the launch that stops
+    after the front end writes a finite v* and leaves q' as it was."""
+    _cuda()
+    m, q0 = KERNEL_MODELS["servo_cheetah"](dtype, "cuda")
+    B = 999
+    q, v, tau = _soa_cuda(inputs(q0, m.nq, m.nv, B, 10), dtype)
+    step = fs.build_fused_step(m)
+    lib = fs._load("cuda")
+    fn = lib.fused_step_f32 if dtype == torch.float32 else lib.fused_step_f64
+
+    def launch(D, front_only=0):
+        qo, vo = torch.full_like(q, 7.0), torch.empty_like(v)
+        err = fn(*(x.data_ptr() for x in (*step.descriptor(q.device, dtype), q, v, tau, qo, vo)), B,
+                 D, m.nv, front_only, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return err, qo, vo
+
+    with torch.no_grad():
+        qk, vk = step(q, v, tau)
+    err, qo, vo = launch(step.D)
+    assert err == 0 and torch.equal(qo, qk) and torch.equal(vo, vk)
+    assert launch(400)[0] != 0
+    err, qo, vstar = launch(step.D, front_only=1)
+    assert err == 0 and (qo == 7.0).all() and torch.isfinite(vstar).all()
+    assert not torch.equal(vstar, vk)
 
 
 @pytest.mark.cuda

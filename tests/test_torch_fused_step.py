@@ -11,6 +11,12 @@
   primal against the step; the tape's node count (the same in every env)
   and its overflow, which raises. The kernels' arithmetic is checked here
   although the kernels themselves run only on a card.
+* The step kernel's warp: its host build runs the warp's 32 lanes one after
+  another, phase by phase, so the lane partition of the LCP solve is the
+  card's. Its output equals the VJP recording's primal (the serial solve)
+  bit for bit, in float64 and float32, for every model of KERNEL_MODELS,
+  which between them make the lanes wrap (D > 32) and leave lanes idle
+  (D < 32); the launch that stops after the front end returns v*.
 * FusedStepFn (the autograd.Function of the CUDA path) over a short BPTT
   rollout, with the host builds as its launchers, against plain autograd.
 * rollout_fast on the CPU against a loop over the plain version; the cache
@@ -95,6 +101,60 @@ def test_host_build_of_kernel_matches_plain_version(model):
     qk, vk = host_kernel_step(m, q, v, tau)
     np.testing.assert_allclose(qk.numpy(), qp.numpy(), atol=1e-8, rtol=0)
     np.testing.assert_allclose(vk.numpy(), vp.numpy(), atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("polish", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", sorted(KERNEL_MODELS))
+def test_host_step_kernel_warp_equals_serial_solve(model, dtype, polish):
+    """The step kernel's host build (the warp's LCP solve, its 32 lanes run
+    in turn) equals the VJP recording's primal (the same stages with the
+    serial solve) bit for bit. Without the Woodbury polish, which would
+    repair a rounding slip of the sweeps on the rows it solves, the output
+    is the sweeps' own."""
+    _needs_cxx()
+    m, q0 = KERNEL_MODELS[model](torch.float64, "cpu")
+    m = m.replace(lcp_polish=polish)
+    q, v, tau, gq, gv = _vjp_inputs(m, q0, B=48, seed=12)
+    qk, vk = host_kernel_step(m, q, v, tau, dtype=dtype)
+    _, (qo, vo), _ = host_kernel_vjp(m, q, v, tau, gq, gv, dtype=dtype)
+    assert qk.dtype == dtype and torch.isfinite(qk).all() and torch.isfinite(vk).all()
+    assert torch.equal(qk, qo) and torch.equal(vk, vo)
+
+
+def test_kernel_models_wrap_and_idle_the_lanes():
+    """KERNEL_MODELS holds LCPs of more rows than a warp has lanes (each
+    lane then takes several rows) and of fewer (lanes idle), and the step
+    kernel's shared memory per env grows with the model's D and nv."""
+    rows = {name: fs.build_fused_step(KERNEL_MODELS[name](torch.float64, "cpu")[0]).D
+            for name in KERNEL_MODELS}
+    assert rows["half_cheetah"] == 42 and max(rows.values()) > 32 and min(rows.values()) < 32
+    _needs_cxx()
+    small, large = (fs.occupancy("host", torch.float32, D, nv) for D, nv in ((5, 5), (42, 9)))
+    caps = fs.occupancy("host", torch.float64, fs.MAX_D, fs.MAX_NV)
+    assert small["env_bytes"] < large["env_bytes"] < caps["env_bytes"] <= 48 * 1024
+    assert large["env_bytes"] % 16 == 0 and large["warps_per_sm"] == 0
+
+
+def test_front_only_launch_returns_v_star():
+    """The launch that stops after the front end returns v* and no q': on a
+    chain without contacts or limits (no LCP rows) v* is the step's v'."""
+    _needs_cxx()
+    b = ModelBuilder(dt=2e-3)
+    prev = -1
+    for _ in range(3):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.2),
+                          damping=0.1)
+    chain = b.finalize(dtype=torch.float64, device="cpu")
+    q, v, tau = (_soa(x) for x in _inputs(np.array([0.3, -0.2, 0.1]), 3, 3, B=8, seed=13))
+    for dtype in (torch.float64, torch.float32):
+        q1, v1 = host_kernel_step(chain, q, v, tau, dtype=dtype)
+        none, vstar = host_kernel_step(chain, q, v, tau, dtype=dtype, front_only=True)
+        assert fs.build_fused_step(chain).D == 0 and none is None and torch.equal(vstar, v1)
+    m, q0 = KERNEL_MODELS["worm"](torch.float64, "cpu")
+    q, v, tau = (_soa(x) for x in _inputs(q0, m.nq, m.nv, B=8, seed=14))
+    _, vstar = host_kernel_step(m, q, v, tau, front_only=True)
+    assert torch.isfinite(vstar).all() and not torch.equal(vstar, host_kernel_step(m, q, v, tau)[1])
 
 
 def _vjp_inputs(m, q0, B, seed):
