@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and exits nonzero, and nothing
 falls back to the CPU or to the plain version:
   1. device   -- the card's name and power limit (nvidia-smi), torch/CUDA.
   2. build    -- nvcc builds every kernel source of this checkout
-                 (ops/csrc/fused_step.cu, ops/csrc/jacobi_sweeps.cu), one
+                 (ops/csrc/fused_step.cu, ops/csrc/jacobi_sweeps.cu), and
+                 the host build of the sweeps (g++, for phase 12), one
                  process each, started together (each wrapper module's
                  _load, on its own thread); ptxas's registers and stack of
                  the step kernel and of the VJP kernel, per dtype; the step
@@ -76,12 +77,18 @@ falls back to the CPU or to the plain version:
                  50 amplify it past any tolerance).
 The vmap stack (sim/step.py, sim/batched.py; the sweep kernel of
 ops/csrc/jacobi_sweeps.cu, which replaces both Pallas sweep kernels):
- 11. build    -- the sweep kernel's ptxas line (built in phase 2).
+ 11. build    -- the sweep kernel's ptxas line (built in phase 2), and per
+                 dtype at the half-cheetah's D its shared memory per warp
+                 (one warp per env), its path (register or direct), warps
+                 per block and the warps per SM it gets
+                 (ops/pallas_lcp.py::launch_config).
  12. sweeps64 / sweeps32 -- the sweep kernel against _jacobi on the card, on
                  the LCPs that prepare_constrained assembles at phase 3's
                  inputs (B = 4096, D = 42) and on their first 13 envs; the
                  limits of diffdart_tpu_torch/ops/sweep_check.py (float64
-                 1e-12, float32 1e-4, relative to max(1, |lam|)).
+                 1e-12, float32 1e-4, relative to max(1, |lam|)); and
+                 against its host build (host_sweeps, the same per-warp code
+                 on the CPU, in the same dtype): equal bit for bit.
  13. vmap-step -- float64, B = 4096, lcp_pivot_iters = 0: the vmap step with
                  contact_solver='lowrank_pallas' against the fused step
                  kernel, 20 steps re-synced, q 1e-7 and v 1e-5 (the JAX
@@ -93,11 +100,16 @@ ops/csrc/jacobi_sweeps.cu, which replaces both Pallas sweep kernels):
                  with a plausible torso height; timed with CUDA events. The
                  sweep kernel's ms per launch is its device time (the C
                  launcher called back to back on prepared pointers, see
-                 sweep_device_ms); the wrapper's host time per call is
-                 printed beside it.
+                 sweep_device_ms): cold (launches rotating over 4 copies of
+                 its inputs, 129 MB in float32, past the 50 MB L2) and warm
+                 (one set, which stays in the L2), the same with iters = 0
+                 (the copy of A and the row scales alone), and float64 cold
+                 and warm, beside their byte bounds (sweep_readings); the
+                 wrapper's host time per call is printed beside it.
  15. batched  -- the same rollout through step_batched: T launches of
                  jacobi_sweeps; one float64 step matches the vmap step
-                 within phase 13's tolerances on >= 99% of envs; timed.
+                 within phase 13's tolerances on >= 99% of envs; timed, with
+                 phase 14's sweep readings taken again.
  16. vmap-bptt -- rollout_fast with model.mass requiring grad: it warns and
                  falls back to the vmap stack; the bench loss of phase 9 and
                  backward(): 2T sweep launches (forward plus per-step
@@ -123,6 +135,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 B, T = 4096, 50
 
 
@@ -163,13 +176,15 @@ def bare_ms(fn, args, reps):
     between CUDA events, so none of a wrapper's checks sits between two
     launches. While the host ms (the time to issue one launch) is below the
     device ms, the card never waits for the host and the events time the
-    kernel alone."""
-    check(fn(*args) == 0, f"{fn.__name__} launch failed")
+    kernel alone. `args` may be a list of argument tuples: the launches
+    then take them in turn."""
+    sets = args if isinstance(args, list) else [args]
+    check(all(fn(*a) == 0 for a in sets), f"{fn.__name__} launch failed")
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     t0 = time.perf_counter()
-    errs = [fn(*args) for _ in range(reps)]
+    errs = [fn(*sets[i % len(sets)]) for i in range(reps)]
     host = 1e3 * (time.perf_counter() - t0) / reps
     end.record()
     torch.cuda.synchronize()
@@ -191,14 +206,61 @@ def step_device_ms(lib, desc, D, q, v, tau, front_only=False, reps=50, sized=Non
     return ms, host, (qo, vo)
 
 
-def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200):
-    """(device ms, host ms) per launch of the sweep kernel (bare_ms)."""
+def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200, copies=1):
+    """(device ms, host ms) per launch of the sweep kernel (bare_ms). With
+    copies > 1 the launches rotate over that many copies of the inputs and
+    outputs: each launch then finds its inputs evicted from the L2 by the
+    others' (cold), where one set stays in the 50 MB L2 (warm)."""
     fn = lib.jacobi_sweeps_f32 if A.dtype == torch.float32 else lib.jacobi_sweeps_f64
-    A, b, lo, hi, mu, fidx = (x.contiguous() for x in (A, b, lo, hi, mu, fidx))
-    lam = torch.empty_like(b)
-    args = (*(x.data_ptr() for x in (A, b, lo, hi, mu, fidx, lam)), b.shape[0], b.shape[1], iters,
-            torch.cuda.current_stream().cuda_stream)
-    return bare_ms(fn, args, reps)
+    stream = torch.cuda.current_stream().cuda_stream
+    sets = []
+    for _ in range(copies):
+        xs = [x.clone().contiguous() for x in (A, b, lo, hi, mu, fidx)] + [torch.empty_like(b)]
+        sets.append((xs, (*(x.data_ptr() for x in xs), b.shape[0], b.shape[1], iters, stream)))
+    return bare_ms(fn, [a for _, a in sets], reps)
+
+
+def sweep_bound(B_, D_, iters, dtype):
+    """(bound ms, bytes ms, operations ms) of the sweeps: each input read
+    once (A, b, lo, hi, mu, fidx), lam written once; per env 2 D^2 + 5 D
+    operations for the row scales, and per iteration one matvec (2 D^2:
+    each row's dot product is taken in one of the two half-sweeps) and
+    10 D per half-sweep (step, bounds, clip, select). Float64 at the H100
+    SXM's 34 TFLOP/s outside the tensor cores (NVIDIA's data sheet)."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (B_ * D_ * D_ + 5 * B_ * D_) * elem + D_ * 8
+    ops = B_ * (2 * D_ * D_ + 5 * D_ + iters * (2 * D_ * D_ + 20 * D_))
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / (F32_OPS_PER_S if elem == 4 else F64_OPS_PER_S)
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def sweep_readings(lib, lcp32, lcp64, iters):
+    """The sweep kernel's device ms per launch on the half-cheetah's LCPs
+    (sweep_device_ms): float32 warm and cold, iters = 0 (the copy of A and
+    the row scales alone) warm and cold, float64 warm and cold; and the
+    host ms to issue one launch, warm and cold (float32)."""
+    a32 = (lcp32.A, lcp32.b, lcp32.lo, lcp32.hi, lcp32.mu, lcp32.fidx)
+    a64 = (lcp64.A, lcp64.b, lcp64.lo, lcp64.hi, lcp64.mu, lcp64.fidx)
+    out = {}
+    out["warm"], out["issue"] = sweep_device_ms(lib, *a32, iters)
+    out["cold"], out["issue_cold"] = sweep_device_ms(lib, *a32, iters, copies=4)
+    out["warm0"] = sweep_device_ms(lib, *a32, 0)[0]
+    out["cold0"] = sweep_device_ms(lib, *a32, 0, copies=4)[0]
+    out["warm64"] = sweep_device_ms(lib, *a64, iters)[0]
+    out["cold64"] = sweep_device_ms(lib, *a64, iters, copies=4)[0]
+    return out
+
+
+def sweep_line(r, bound32, bound64):
+    """The text of sweep_readings' numbers beside their bounds."""
+    return (f"float32 cold {r['cold']:.4f} ms (launches rotating over 4 copies of the inputs, past "
+            f"the 50 MB L2), warm {r['warm']:.4f} ms (one set, L2-resident: it may read below the "
+            f"HBM bound), bound {bound32:.6f} ms (bytes), cold {r['cold'] / bound32:.2f}x it; "
+            f"iters = 0 (the copy of A and the row scales alone) cold {r['cold0']:.4f}, warm "
+            f"{r['warm0']:.4f} ms; float64 cold {r['cold64']:.4f}, warm {r['warm64']:.4f} ms, bound "
+            f"{bound64:.6f} ms (bytes), cold {r['cold64'] / bound64:.2f}x it; issuing one launch "
+            f"{r['issue']:.4f} ms (cold set {r['issue_cold']:.4f}) on the host")
 
 
 def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
@@ -329,8 +391,9 @@ def main():
 
     # ---- 2. build (every source at once, one nvcc each) ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        lib, lib_sw = pool.map(lambda load: load("cuda"), (fs._load, P._load))
+    with ThreadPoolExecutor(3) as pool:
+        lib, lib_sw, _ = pool.map(lambda load: load[0](load[1]),
+                                  ((fs._load, "cuda"), (P._load, "cuda"), (P._load, "host")))
     build_wall = time.perf_counter() - t0
 
     def ptxas(lib):
@@ -588,6 +651,13 @@ def main():
 
     # ---- 11. build of the sweep kernel (started with the others in phase 2) ----
     print(f"[build] jacobi_sweeps.cu: nvcc {lib_sw.build_seconds:.1f} s | ptxas: {ptxas(lib_sw)}")
+    sw_cfg = {dt: P.launch_config(dt, D) for dt in (torch.float32, torch.float64)}
+    print("[build] sweep kernel, one warp per env: " + "; ".join(
+        f"{str(dt)[6:]}: {c['warp_bytes']} bytes of shared memory per warp "
+        f"({'the register path' if c['register_path'] else 'the direct path'}), "
+        f"{c['warps_per_block']} warps per block ({c['block_bytes']} bytes), "
+        f"{c['warps_per_sm']} warps per SM" for dt, c in sw_cfg.items()) + f" (D = {D})")
+    check(all(c["warps_per_sm"] > 0 for c in sw_cfg.values()), "the sweep kernel fits no block on an SM")
 
     from diffdart_tpu_torch.ops.lcp import _jacobi
     from diffdart_tpu_torch.sim import step as S
@@ -620,6 +690,10 @@ def main():
                   f"finite {bool(torch.isfinite(got).all())}; max |lam| {want.abs().max().item():.3e}")
             check(sc.sweep_ok(got, want), f"{name}: the sweep kernel disagrees with _jacobi at B={Bc}")
             sweep_errs[dtype, Bc] = err
+            host = P.host_sweeps(*(x[:Bc] for x in args), lcp.fidx, m_.contact_iters, dtype=dtype)
+            exact = bool(torch.equal(got.cpu(), host))
+            print(f"[{name}] B={Bc}: kernel lam == host build's lam bit for bit: {exact}")
+            check(exact, f"{name}: the sweep kernel differs from its host build at B={Bc}")
 
     # ---- 13. vmap-step: the vmap step through the sweep kernel vs the fused step kernel ----
     m64p = m64.replace(contact_solver="lowrank_pallas", lcp_pivot_iters=0)
@@ -658,19 +732,26 @@ def main():
     lcp32 = lcps[torch.float32]
     a32 = (lcp32.A, lcp32.b, lcp32.lo, lcp32.hi, lcp32.mu)
     it = m32.contact_iters
+    Bs, Ds = lcp32.b.shape
+    sweep_bound_ms, sw_tb, sw_to = sweep_bound(Bs, Ds, it, torch.float32)
+    sweep64_bound_ms = sweep_bound(Bs, Ds, it, torch.float64)[0]
     with torch.no_grad():
-        sweep_ms, sweep_issue_ms = sweep_device_ms(lib_sw, *a32, lcp32.fidx, it)
+        rd14 = sweep_readings(lib_sw, lcp32, lcps[torch.float64], it)
+        sweep_ms, sweep_issue_ms = rd14["cold"], rd14["issue_cold"]
         sweep_wrap_ms = host_ms(lambda: P.jacobi_sweeps_pallas_single(*a32, lcp32.fidx, it), reps=200)
         sweep_plain_ms = cuda_ms(lambda: _jacobi(*a32, lcp32.fidx, it), reps=20)
         vstep_ms = cuda_ms(lambda: S.step(m32p, state_b, taus[0]), reps=5)
         vroll_ms = cuda_ms(lambda: S.rollout(m32p, state_b, taus), reps=2)
     sps_v = B * T / (vroll_ms * 1e-3)
-    print(f"[vmap-main] timing on {card}: sweep kernel {sweep_ms:.4f} ms/launch on the device "
+    print(f"[vmap-main] sweep kernel on {card}, device ms per launch: "
+          f"{sweep_line(rd14, sweep_bound_ms, sweep64_bound_ms)}")
+    print(f"[vmap-main] timing on {card}: sweep kernel {sweep_ms:.4f} ms/launch on the device, cold "
           f"(issuing one launch {sweep_issue_ms:.4f} ms on the host; one wrapper call "
           f"{sweep_wrap_ms:.4f} ms on the host), plain _jacobi {sweep_plain_ms:.4f} ms; vmap step "
           f"{vstep_ms:.3f} ms; rollout {vroll_ms:.2f} ms = {sps_v:.6g} fwd env-steps/s (fused path: "
           f"{sps:.6g})")
-    check(sweep_issue_ms < sweep_ms, "the sweep kernel's timing waited on the host")
+    check(rd14["issue"] < rd14["warm"] and sweep_issue_ms < sweep_ms,
+          "the sweep kernel's timing waited on the host")
     with torch.no_grad():
         vstep_host_ms = host_ms(lambda: S.step(m32p, state_b, taus[0]), reps=1)
     print(f"[vmap-main] host time to enqueue one vmap step {vstep_host_ms:.3f} ms of its "
@@ -699,14 +780,18 @@ def main():
     share_b = ((dq <= 1e-7) & (dv <= 1e-5)).double().mean().item()
     with torch.no_grad():
         batched_ms = cuda_ms(lambda: step_batched(m32, state_b, taus[0]), reps=5)
-        batched_sweep_ms, batched_issue_ms = sweep_device_ms(lib_sw, *a32, lcp32.fidx, it)
+        rd15 = sweep_readings(lib_sw, lcp32, lcps[torch.float64], it)
+        batched_sweep_ms, batched_issue_ms = rd15["cold"], rd15["issue_cold"]
         batched_wrap_ms = host_ms(lambda: P.jacobi_sweeps_pallas(*a32, lcp32.fidx, it), reps=200)
     print(f"[batched] f64 step vs the vmap step: {100 * share_b:.2f}% of envs within q 1e-7, v 1e-5 "
           f"(max |dq| {dq.max().item():.3e}, |dv| {dv.max().item():.3e}); timing on {card}: "
           f"step_batched {batched_ms:.3f} ms/step, sweep kernel {batched_sweep_ms:.4f} ms/launch on "
-          f"the device (issue {batched_issue_ms:.4f} ms, wrapper call {batched_wrap_ms:.4f} ms on "
-          f"the host)")
-    check(batched_issue_ms < batched_sweep_ms, "the sweep kernel's timing waited on the host")
+          f"the device, cold (issue {batched_issue_ms:.4f} ms, wrapper call {batched_wrap_ms:.4f} ms "
+          f"on the host)")
+    print(f"[batched] sweep kernel on {card}, device ms per launch: "
+          f"{sweep_line(rd15, sweep_bound_ms, sweep64_bound_ms)}")
+    check(rd15["issue"] < rd15["warm"] and batched_issue_ms < batched_sweep_ms,
+          "the sweep kernel's timing waited on the host")
     check(share_b >= 0.99, "step_batched disagrees with the vmap step")
 
     # ---- 16. vmap-bptt: rollout_fast falls back to the vmap stack for mass gradients ----
@@ -799,33 +884,29 @@ def main():
           f"design's, not the work's): {nodes32} nodes x {fs.tape_bytes(torch.float32, 1, 1)} bytes x "
           f"{B} envs, written once and read once, "
           f"{1e3 * 2 * fs.tape_bytes(torch.float32, nodes32, B) / HBM_BYTES_PER_S:.4f} ms")
-    # the sweeps: each input read once (A, b, lo, hi, mu, fidx), lam written
-    # once; per env 2 D^2 + 5 D operations for the row scales, and per
-    # iteration one matvec (2 D^2: each row's dot product is taken in one of
-    # the two half-sweeps) and 10 D per half-sweep (step, bounds, clip,
-    # select)
-    Bs, Ds = lcp32.b.shape
-    sw_bytes = (Bs * Ds * Ds + 5 * Bs * Ds) * 4 + Ds * 8
-    sw_ops = Bs * (2 * Ds * Ds + 5 * Ds + it * (2 * Ds * Ds + 20 * Ds))
-    ts_bytes, ts_ops = sw_bytes / HBM_BYTES_PER_S, sw_ops / F32_OPS_PER_S
-    sweep_bound_ms = 1e3 * max(ts_bytes, ts_ops)
-    print(f"[bound] sweeps: {sw_ops // Bs} ops/env x {Bs} envs, {sw_bytes} bytes (B={Bs}, D={Ds}, "
-          f"iters={it}): bytes {1e3 * ts_bytes:.3e} ms, ops {1e3 * ts_ops:.3e} ms")
+    sw_ops = 2 * Ds * Ds + 5 * Ds + it * (2 * Ds * Ds + 20 * Ds)
+    print(f"[bound] sweeps: {sw_ops} ops/env x {Bs} envs, {(Bs * Ds * Ds + 5 * Bs * Ds) * 4 + Ds * 8} "
+          f"bytes (B={Bs}, D={Ds}, iters={it}): bytes {sw_tb:.3e} ms, ops {sw_to:.3e} ms")
     sweep_entries = [{
         "name": name,
+        "design": "redesigned: one warp per env over its phase's rows, persistent warps; the "
+                  "next env's A brought in by one bulk copy (TMA) while the warp sweeps the "
+                  "current one; in float32 each lane holds its rows in registers (was one block "
+                  "per env)",
         "route": "cuda",
         "source": "diffdart_tpu_torch/ops/csrc/jacobi_sweeps.cu",
         "replaces": replaces,
         "launches": launches_,
         "max_abs_err": sweep_errs[torch.float32, B],
-        "ms": ms_,
+        "ms": rd["cold"],
+        "warm_ms": rd["warm"],
         "plain_ms": sweep_plain_ms,
         "bound_ms": sweep_bound_ms,
-        "bound_by": "operations" if ts_ops >= ts_bytes else "bytes",
+        "bound_by": "operations" if sw_to >= sw_tb else "bytes",
         "library_ms": None,
-    } for name, replaces, launches_, ms_ in (
-        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, batched_sweep_ms),
-        ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, sweep_ms))]
+    } for name, replaces, launches_, rd in (
+        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15),
+        ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, rd14))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "

@@ -33,6 +33,12 @@ def _load(kind: str) -> ctypes.CDLL:
     lib = _build.build("jacobi_sweeps", kind)
     lib.jacobi_sweeps_max_d.argtypes = [ctypes.c_int]
     lib.jacobi_sweeps_max_d.restype = ctypes.c_int
+    lib.jacobi_sweeps_max_rows_for.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.jacobi_sweeps_max_rows_for.restype = ctypes.c_int
+    lib.jacobi_sweeps_config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.jacobi_sweeps_config.restype = ctypes.c_int
+    lib.jacobi_sweeps_lists.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.jacobi_sweeps_lists.restype = ctypes.c_int
     for name in ("jacobi_sweeps_f32", "jacobi_sweeps_f64"):
         _build.declare(getattr(lib, name), 7, 3)
     return lib
@@ -40,12 +46,28 @@ def _load(kind: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def max_rows(dtype, device_index: int = 0) -> int:
-    """The largest D the CUDA kernel takes in `dtype` on the card: its
-    per-env scratch (A and five vectors) must fit the card's opt-in shared
-    memory per block (227 KB on the H100: 167 rows in float64, 238 in
-    float32)."""
+    """The largest D the CUDA kernel takes in `dtype` on the card: one
+    warp's shared memory with one buffer (A, lam, the new values and the
+    row scales) and the block's phase lists must fit the card's opt-in
+    shared memory per block (227 KB on the H100: 167 rows in float64, 238
+    in float32)."""
     with torch.cuda.device(device_index):
         return _load("cuda").jacobi_sweeps_max_d(torch.finfo(dtype).bits // 8)
+
+
+def launch_config(dtype, D: int, kind: str = "cuda") -> dict:
+    """How the kernel runs at D in `dtype` on the current card (kind='cuda'),
+    or the shared memory the host build sizes for it (kind='host'): whether
+    the register path can run (float32, 15 <= D <= 48; the kernel also needs
+    at most 32 rows per phase, else it takes the direct path), warps per
+    block, warps per SM (from the occupancy the kernel gets; 0 in the host
+    build), shared bytes per block and per warp."""
+    out = (ctypes.c_int * 5)()
+    err = _load(kind).jacobi_sweeps_config(torch.finfo(dtype).bits // 8, int(D), out)
+    if err:
+        raise RuntimeError(f"jacobi_sweeps_config failed: CUDA error {err}")
+    keys = ("register_path", "warps_per_block", "warps_per_sm", "block_bytes", "warp_bytes")
+    return {k: bool(v) if k == "register_path" else v for k, v in zip(keys, out)}
 
 
 def _check(A, b, lo, hi, mu, fidx, what):
@@ -118,18 +140,21 @@ def jacobi_sweeps_pallas_single(A, b, lo, hi, mu, fidx, iters: int = 6):
     return KERNEL_SINGLE(A, b, lo, hi, mu, fidx, iters)
 
 
-def host_sweeps(A, b, lo, hi, mu, fidx, iters: int):
-    """The kernel's per-env code compiled for the host CPU (ops/_build.py,
-    kind='host') on float64 tensors: checks the kernel's arithmetic where
-    there is no GPU. Not on any execution path."""
+def host_sweeps(A, b, lo, hi, mu, fidx, iters: int, dtype=torch.float64):
+    """The kernel's per-warp code compiled for the host CPU (ops/_build.py,
+    kind='host'), on CPU copies of the inputs in `dtype`: checks the
+    kernel's arithmetic where there is no GPU, and is the card's λ bit for
+    bit. Not on any execution path."""
     _check(A, b, lo, hi, mu, fidx, "host_sweeps")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"host_sweeps: dtype must be float32 or float64, got {dtype}")
     lib = _load("host")
-    xs = [x.detach().cpu().to(torch.float64).contiguous() for x in (A, b, lo, hi, mu)]
+    fn = lib.jacobi_sweeps_f32 if dtype == torch.float32 else lib.jacobi_sweeps_f64
+    xs = [x.detach().cpu().to(dtype).contiguous() for x in (A, b, lo, hi, mu)]
     f = fidx.cpu().contiguous()
     lam = torch.empty_like(xs[1])
     B, D = xs[1].shape
-    err = lib.jacobi_sweeps_f64(*(x.data_ptr() for x in xs), f.data_ptr(), lam.data_ptr(), B, D,
-                                int(iters), None)
+    err = fn(*(x.data_ptr() for x in xs), f.data_ptr(), lam.data_ptr(), B, D, int(iters), None)
     if err:
         raise RuntimeError(f"host jacobi_sweeps failed: {err}")
     return lam

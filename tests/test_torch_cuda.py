@@ -24,7 +24,11 @@ KERNEL_MODELS covers every joint, contact and row type of the kernel's
 subset; tests/test_torch_fused_step.py runs the same models through the
 kernel's host build.
 
-Sweep kernel: against ops/lcp.py::_jacobi at D = 9 (a random problem), D =
+Sweep kernel: equal bit for bit to its host build (ops/pallas_lcp.py::
+host_sweeps, the same per-warp code on the CPU) in both dtypes at B = 1,
+13 and 4096 and D = 24, 42 (half-cheetah LCPs) and 80, and at the cap
+(167 rows in float64, 238 in float32, where a warp has one buffer);
+against ops/lcp.py::_jacobi at D = 9 (a random problem), D =
 42 (half-cheetah LCPs) and D = 80 (a random problem past the first
 version's cap of 64; above 48 KB of shared memory), odd B, both dtypes,
 within
@@ -386,6 +390,67 @@ def test_sweep_kernel_past_64_rows(dtype):
     want = _jacobi(*args, f, 6)
     assert sc.sweep_ok(got, want), sc.sweep_error(got, want)
     assert want.abs().max() > 0
+
+
+def _random_lcp(D, B, seed, nv=12):
+    """A random boxed LCP of D rows, float64 numpy: D // 3 contacts (a
+    normal row, two friction rows), then limit rows with lo = 0, hi = inf."""
+    rng = np.random.default_rng(seed)
+    nc = D // 3
+    J = rng.normal(size=(B, D, nv))
+    A = np.einsum("bik,bjk->bij", J, J) + 1e-3 * np.eye(D)
+    hi = np.zeros((B, D))
+    hi[:, :nc] = hi[:, 3 * nc:] = np.inf
+    mu = np.zeros((B, D))
+    mu[:, nc:3 * nc] = 0.5
+    fidx = np.full(D, -1)
+    fidx[nc:3 * nc] = np.tile(np.arange(nc), 2)
+    return A, rng.normal(size=(B, D)), np.zeros((B, D)), hi, mu, fidx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 13, 4096])
+@pytest.mark.parametrize("D", [24, 42, 80])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_kernel_equals_host_build(dtype, D, B):
+    """The kernel's lam equals its host build's bit for bit: the same
+    serial order per row, whatever the warps, buffers and grid."""
+    _cuda()
+    if D == 42:
+        A, b, lo, hi, mu, fidx, iters = _sweep_problem(42, B, dtype)
+    else:
+        *xs, f = _random_lcp(D, B, seed=D + B)
+        A, b, lo, hi, mu = (torch.tensor(x, dtype=dtype, device="cuda") for x in xs)
+        fidx, iters = torch.tensor(f, device="cuda"), 4
+    n0 = P.KERNEL.launches
+    got = P.jacobi_sweeps_pallas(A, b, lo, hi, mu, fidx, iters)
+    torch.cuda.synchronize()
+    assert P.KERNEL.launches == n0 + 1
+    want = P.host_sweeps(A, b, lo, hi, mu, fidx, iters, dtype=dtype)
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_kernel_at_the_cap_equals_host_build(dtype):
+    """At the cap (167 rows in float64, 238 in float32 on the H100) the
+    kernel takes the direct path, and reads b, lo, hi, mu from device
+    memory. At D = 42 float32 takes the register path."""
+    _cuda()
+    D = P.max_rows(dtype)
+    assert D == {torch.float64: 167, torch.float32: 238}[dtype]
+    cfg = P.launch_config(dtype, D)
+    assert not cfg["register_path"] and cfg["warps_per_sm"] >= 1
+    assert P.launch_config(dtype, 42)["register_path"] == (dtype == torch.float32)
+    *xs, f = _random_lcp(D, 5, seed=D)
+    args = [torch.tensor(x, dtype=dtype, device="cuda") for x in xs]
+    fidx = torch.tensor(f, device="cuda")
+    got = P.jacobi_sweeps_pallas_single(*args, fidx, 3)
+    torch.cuda.synchronize()
+    want = P.host_sweeps(*args, fidx, 3, dtype=dtype)
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max()
 
 
 @pytest.mark.cuda
