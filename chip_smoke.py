@@ -111,16 +111,50 @@ ops/csrc/jacobi_sweeps.cu, which replaces both Pallas sweep kernels):
                  within phase 13's tolerances on >= 99% of envs; timed, with
                  phase 14's sweep readings taken again.
  16. vmap-bptt -- rollout_fast with model.mass requiring grad: it warns and
-                 falls back to the vmap stack; the bench loss of phase 9 and
-                 backward(): 2T sweep launches (forward plus per-step
-                 recomputation), dtau less the regulariser's gradient
-                 non-zero on >= 99% of envs, d loss / d mass finite and
-                 non-zero; peak memory and fwd+grad env-steps/s printed.
+                 falls back to the vmap stack (rollout_checkpointed, which
+                 keeps each step's LCP impulse); the bench loss of phase 9
+                 and backward(): T sweep launches (the forward solves; the
+                 backward recomputes each step with its impulse and runs no
+                 sweeps), dtau less the regulariser's gradient non-zero on
+                 >= 99% of envs, d loss / d mass finite and non-zero; peak
+                 memory and fwd+grad env-steps/s printed.
  17. vmap-reference -- float64, B = 256, T = 10: the gradient of
                  mean(q_T[:, 1]^2) over the converged envs (natural-map
                  residual below 1e-8 at every step) with respect to tau and
                  mass, through the kernel ('lowrank_pallas') against the
                  plain sweeps ('lowrank'), within ops/vjp_check.py's limits.
+ 18. jacobians -- neural/jacobians.py::timestep_jacobians on the
+                 half-cheetah, B = 4096, float32, 'lowrank_pallas', at the
+                 state after 10 steps of phase 14's rollout started 0.15
+                 lower (4 active contacts per env): all seven blocks, finite on >= 99% of envs; the
+                 sweep launches per call (one per forward solve: 1); timed
+                 with CUDA events (median of 5) as env-Jacobian-sets/s.
+                 Float64, B = 256, on the converged envs (natural-map
+                 residual below 1e-8): through the kernel against the plain
+                 sweeps ('lowrank') within ops/vjp_check.py's limits; on 8
+                 of them against central differences (eps 1e-5; 1e-6 is
+                 printed, where the solve's own rounding over 2 eps reaches
+                 ~1e-3) within atol 3e-4 (tests/test_neural.py's contact
+                 tolerance); and backprop's result equal to J^T g from the
+                 Jacobians within 1e-8 of its largest magnitude.
+ 19. dense-lcp -- cube_drop, B = 4096, float32, contact_solver 'pgs' then
+                 'jacobi' (ops/lcp.py::boxed_lcp, plain PyTorch), 200 steps
+                 from rest 2-20 mm above the ground: every resting height
+                 within 1 mm of the half-extent, the gradient of the final
+                 pose with respect to the initial velocity finite and
+                 non-zero (rollout_checkpointed), no sweep-kernel launch;
+                 ms per step timed.
+ 20. bilateral -- the ball-pinned pendulum and the welded pair of
+                 tests/test_bilateral.py, B = 4096, 200 steps with
+                 'lowrank_pallas': the anchor stays within 2e-3 of the
+                 origin, the welded pair's relative pose within 5e-3; the
+                 first step's LCP (bilateral rows: lo = -inf, hi = +inf)
+                 through the sweep kernel against _jacobi within
+                 ops/sweep_check.py's limits and against the host build bit
+                 for bit; a chain of the five joint types of the last slice
+                 (SCREW, UNIVERSAL, EULER, TRANSLATIONAL, TRANSLATIONAL2D),
+                 100 steps in float64 on the card against the port on the
+                 CPU, q and v within 1e-9.
 Then one JSON line with the kernels' numbers, the card line, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -817,19 +851,22 @@ def main():
     d_dyn_v = dtaus_v - g_reg
     share_v = (d_dyn_v != 0).any(-1).any(0).double().mean().item()
     print(f"[vmap-bptt] rollout_fast with mass requiring grad, B={B} T={T} f32: warned "
-          f"{warned[:1]}; {launches_bptt} sweep launches (forward + per-step recomputation), "
+          f"{warned[:1]}; {launches_bptt} sweep launches (the forward solves; the backward "
+          f"recomputes each step with its saved impulse), "
           f"{fs.KERNEL.launches} fused-step launches; dtau through the dynamics non-zero on "
           f"{100 * share_v:.2f}% of envs, max {d_dyn_v.abs().max().item():.3e}; d loss/d mass "
           f"{dmass.tolist()}; peak memory {peak_gb:.3f} GB")
     check(any("require grad" in w for w in warned), "rollout_fast did not warn about the fallback")
     check(fs.KERNEL.launches == 0, "the fused path ran where the vmap stack must")
-    check(launches_bptt == 2 * T, f"expected {2 * T} sweep launches in the vmap BPTT, got {launches_bptt}")
+    check(launches_bptt == T, f"expected {T} sweep launches in the vmap BPTT, got {launches_bptt}")
     check(bool(torch.isfinite(dtaus_v).all()) and share_v >= 0.99, "bad dtau on the vmap BPTT path")
     check(bool(torch.isfinite(dmass).all() and (dmass != 0).any()), "bad mass gradient")
     vbptt_ms = cuda_ms(vmap_bptt, reps=2)
     sps_vg = B * T / (vbptt_ms * 1e-3)
     print(f"[vmap-bptt] timing on {card}: loss + backward {vbptt_ms:.1f} ms = {sps_vg:.6g} fwd+grad "
-          f"env-steps/s (fused path: {sps_grad:.6g})")
+          f"env-steps/s, peak memory {peak_gb:.3f} GB (fused path: {sps_grad:.6g}; the earlier "
+          f"rollout, which re-ran every LCP solve in the backward pass with 2T sweep launches: "
+          f"9587.7 ms on an NVIDIA H100 80GB HBM3 at 700.00 W)")
 
     # ---- 17. vmap-reference: float64 gradients through the kernel vs the plain sweeps ----
     Br, Tr = 256, 10
@@ -865,6 +902,226 @@ def main():
     check(int(conv.sum()) >= Br // 2, "too few converged envs for the reference check")
     check(ok_r, "the float64 gradient through the sweep kernel disagrees with the plain sweeps")
 
+    # ---- 18. jacobians: timestep Jacobians on the card ----
+    from diffdart_tpu_torch.neural import LossGradient, backprop, timestep_jacobians
+
+    # phase 14's rollout, started 0.15 lower (the standing start leaves the
+    # feet in the air for its first 10 steps): 4 active contacts per env
+    q_low = q_main.clone()
+    q_low[:, 0] -= 0.15
+    with torch.no_grad():
+        s10 = S.rollout_final(m32p, State(q=q_low, v=state_b.v), taus[:10])
+    reset_counts()
+    jac = timestep_jacobians(m32p, s10, taus[10])
+    torch.cuda.synchronize()
+    jac_launches = P.KERNEL_SINGLE.launches
+    fin_share = torch.stack([torch.isfinite(x).flatten(1).all(1) for x in jac]).all(0).double().mean().item()
+    shapes = {k: tuple(x.shape) for k, x in jac._asdict().items()}
+    jac_runs = sorted(cuda_ms(lambda: timestep_jacobians(m32p, s10, taus[10]), reps=1) for _ in range(5))
+    jac_ms = jac_runs[2]
+    print(f"[jacobians] timestep_jacobians, half-cheetah B={B} f32 lowrank_pallas, after 10 steps: "
+          f"blocks {shapes}; finite on {100 * fin_share:.2f}% of envs; {jac_launches} sweep launch(es) "
+          f"per call (one forward solve; the {m32.nv} + {2 * m32.nv} backward rows run none); timing on "
+          f"{card}: median {jac_ms:.1f} ms (min {jac_runs[0]:.1f}, max {jac_runs[-1]:.1f}, 5 runs) = "
+          f"{B / (jac_ms * 1e-3):.6g} env-Jacobian-sets/s")
+    check(len(shapes) == 7 and shapes["mass_vel"] == (B, m32.nbody, m32.nv)
+          and shapes["vel_vel"] == (B, m32.nv, m32.nv), "bad Jacobian shapes")
+    check(fin_share >= 0.99, "non-finite Jacobians on > 1% of envs")
+    check(jac_launches == 1, f"expected 1 sweep launch per Jacobian call, got {jac_launches}")
+
+    Bj = 256
+    s10_64 = State(q=s10.q[:Bj].double(), v=s10.v[:Bj].double())
+    tau_j = taus[10, :Bj].double()
+    m64j = m64.replace(contact_solver="lowrank_pallas")
+    with torch.no_grad():
+        conv_j = solver_diagnostics(m64j, s10_64, tau_j) < 1e-8
+    jk = timestep_jacobians(m64j, s10_64, tau_j)
+    jp = timestep_jacobians(m64j.replace(contact_solver="lowrank"), s10_64, tau_j)
+    worst = 0.0
+    ok_j = True
+    for name, a, b in zip(jk._fields, jk, jp):
+        a, b = a[conv_j], b[conv_j]
+        tol = vc.VJP_RTOL * b.abs() + vc.VJP_ATOL * b.abs().max()
+        ok_j &= bool(((a - b).abs() <= tol).all())
+        worst = max(worst, ((a - b).abs() / b.abs().max().clamp_min(1e-30)).max().item())
+    print(f"[jacobians] on {card}, f64 B={Bj}, {int(conv_j.sum())} converged envs: kernel vs plain "
+          f"sweeps, max "
+          f"|difference| / max |block| {worst:.3e} (limits rtol {vc.VJP_RTOL:g} + atol {vc.VJP_ATOL:g})")
+    check(int(conv_j.sum()) >= 8, "too few converged envs for the Jacobian checks")
+    check(ok_j, "Jacobians through the sweep kernel disagree with the plain sweeps")
+
+    # central differences on 8 converged envs; at eps = 1e-6 the float64
+    # solve's own rounding (~1e-9 in v', the Woodbury floor eps/cfm times
+    # the impulses) over 2 eps reaches ~1e-3, so the gate is at eps = 1e-5
+    # and the 1e-6 reading is printed beside it
+    from diffdart_tpu_torch.dynamics import dynamics as DD
+
+    idx = torch.nonzero(conv_j).flatten()[:8]
+    q8, v8, t8 = s10_64.q[idx], s10_64.v[idx], tau_j[idx]
+    one = torch.ones((), dtype=torch.float64, device="cuda")
+
+    def fd_errors(eps):
+        with torch.no_grad():
+            base_q = S.step(m64j, State(q=q8, v=v8), t8).q
+
+            def out(q_, v_, t_, model=m64j):
+                s_ = S.step(model, State(q=q_, v=v_), t_)
+                return DD.position_difference(model, base_q, s_.q), s_.v
+
+            def central(f):
+                (pp, vp), (pm, vm) = f(eps), f(-eps)
+                return (pp - pm) / (2 * eps), (vp - vm) / (2 * eps)
+
+            fd = {k: [] for k in jk._fields}
+            for j in range(m64.nv):
+                e = torch.zeros_like(v8)
+                e[:, j] = 1.0
+                for (kp, kv), f in (
+                        (("pos_pos", "pos_vel"),
+                         lambda h: out(DD.integrate_positions(m64j, q8, h * e, one), v8, t8)),
+                        (("vel_pos", "vel_vel"), lambda h: out(q8, v8 + h * e, t8)),
+                        (("force_pos", "force_vel"), lambda h: out(q8, v8, t8 + h * e))):
+                    dp, dv = central(f)
+                    fd[kp].append(dp)
+                    fd[kv].append(dv)
+            for i in range(m64.nbody):
+                dm = torch.zeros_like(m64j.mass)
+                dm[i] = 1.0
+                fd["mass_vel"].append(
+                    central(lambda h: out(q8, v8, t8, m64j.replace(mass=m64j.mass + h * dm)))[1])
+        return {k: (getattr(jk, k)[idx] - torch.stack(c, dim=-2 if k == "mass_vel" else -1))
+                .abs().max().item() for k, c in fd.items()}
+
+    fd_err, fd_err6 = fd_errors(1e-5), fd_errors(1e-6)
+    print(f"[jacobians] on {card}, f64, 8 converged envs against central differences: eps 1e-5, max "
+          f"|difference| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in fd_err.items()) + " (atol 3e-4); eps 1e-6 (the solve's "
+          f"rounding over 2 eps), max {max(fd_err6.values()):.3e}")
+    check(max(fd_err.values()) <= 3e-4, "the Jacobians disagree with central differences")
+
+    g_rng = np.random.RandomState(3)
+    gq_j, gv_j = (torch.tensor(g_rng.randn(Bj, m64.nv), device="cuda") for _ in range(2))
+    bp = backprop(m64j, s10_64, tau_j, LossGradient(gq_j, gv_j, torch.zeros_like(gq_j)))
+
+    def jt(Jq, Jv):  # J^T g per env
+        return (Jq.transpose(-1, -2) @ gq_j.unsqueeze(-1)
+                + Jv.transpose(-1, -2) @ gv_j.unsqueeze(-1)).squeeze(-1)
+
+    bp_err = 0.0
+    for got, want in zip(bp, (jt(jk.pos_pos, jk.pos_vel), jt(jk.vel_pos, jk.vel_vel),
+                              jt(jk.force_pos, jk.force_vel))):
+        bp_err = max(bp_err, ((got - want).abs().max() / want.abs().max()).item())
+    print(f"[jacobians] on {card}, f64 B={Bj}: backprop against J^T g from the Jacobians, max "
+          f"|difference| / max "
+          f"|J^T g| {bp_err:.3e} (limit {vc.VJP_ATOL:g}: both are the IFT backward at the same impulse, "
+          f"summed in another order, which the Woodbury solve amplifies by about eps/cfm)")
+    check(bp_err <= vc.VJP_ATOL, "backprop disagrees with J^T g")
+
+    # ---- 19. dense-lcp: cube_drop through the dense boxed_lcp ----
+    from diffdart_tpu_torch.models import cube_drop
+
+    cube = cube_drop(dtype=torch.float32, device="cuda")
+    half = 0.1
+    q_c = cube.neutral_q().repeat(B, 1)
+    gen = torch.Generator("cuda").manual_seed(0)
+    q_c[:, 6] = half + 0.002 + 0.018 * torch.rand(B, device="cuda", generator=gen)
+    dense_ms = {}
+    for solver in ("pgs", "jacobi"):
+        mc = cube.replace(contact_solver=solver)
+        v0 = torch.zeros(B, cube.nv, device="cuda", requires_grad=True)
+        zeros = torch.zeros(200, B, cube.nv, device="cuda")
+        reset_counts()
+        fin_c = S.rollout_checkpointed(mc, State(q=q_c, v=v0), zeros)
+        (g_v0,) = torch.autograd.grad(fin_c.q[:, 4:].sum(), v0)
+        torch.cuda.synchronize()
+        launches_c = P.KERNEL.launches + P.KERNEL_SINGLE.launches
+        z_c = fin_c.q[:, 6].detach()
+        err_c = (z_c - half).abs().max().item()
+        with torch.no_grad():
+            dense_ms[solver] = cuda_ms(lambda: S.step(mc, State(q=q_c, v=v0.detach()), zeros[0]), reps=5)
+        print(f"[dense-lcp] cube_drop B={B} f32 contact_solver={solver!r}, 200 steps from rest 2-20 mm up: "
+              f"resting height max |z - {half}| {err_c:.3e} (limit 1e-3); d(final position)/d(v0) finite "
+              f"{bool(torch.isfinite(g_v0).all())}, max {g_v0.abs().max().item():.3e}; {launches_c} sweep-"
+              f"kernel launches; timing on {card}: {dense_ms[solver]:.3f} ms per step")
+        check(err_c <= 1e-3, f"{solver}: the cube does not rest at its half-extent")
+        check(bool(torch.isfinite(g_v0).all()) and bool((g_v0 != 0).any()), f"{solver}: bad gradient")
+        check(launches_c == 0, f"{solver}: the dense solver launched the sweep kernel")
+
+    # ---- 20. bilateral: ball and weld rows through the sweep kernel ----
+    from diffdart_tpu_torch.dynamics.model import (
+        JointType, ModelBuilder, add_ball_constraint, add_weld_constraint)
+    from diffdart_tpu_torch.dynamics.kinematics import fk
+    from diffdart_tpu_torch.math.lie import tf_apply
+    from diffdart_tpu_torch.models import chain
+
+    def free_bodies(n, **kw):
+        b_ = ModelBuilder(dt=1e-3)
+        for _ in range(n):
+            b_.add_body(parent=-1, jtype=JointType.FREE, mass=1.0, inertia=np.eye(3) * 0.01, **kw)
+        return b_.finalize(dtype=torch.float32, device="cuda")
+
+    pend = add_ball_constraint(free_bodies(1, com=(0.3, 0, 0)), -1, 0, world_point=(0.0, 0.0, 0.0))
+    pair = free_bodies(2)
+    q_pair = pair.neutral_q()
+    q_pair[11] = 0.4
+    pair = add_weld_constraint(pair.replace(gravity=torch.zeros(3, device="cuda")), 0, 1, q=q_pair)
+    rng_b = np.random.RandomState(4)
+    for name, mb, q_b, v_b in (
+            ("ball", pend, pend.neutral_q(), np.zeros(6)),
+            ("weld", pair, q_pair, np.r_[1.5, 0, 0, 0, 0.5, 0, np.zeros(6)])):
+        mb = mb.replace(contact_solver="lowrank_pallas")
+        st = State(q=q_b.repeat(B, 1), v=bs(v_b + 0.1 * rng_b.randn(B, mb.nv), torch.float32))
+        with torch.no_grad():
+            lcp_b = prepare_constrained(mb, st)[0]
+            reset_counts()
+            fin_b = S.rollout_final(mb, st, torch.zeros(200, B, mb.nv, device="cuda"))
+            torch.cuda.synchronize()
+            launches_b = P.KERNEL_SINGLE.launches
+        args = (lcp_b.A, lcp_b.b, lcp_b.lo, lcp_b.hi, lcp_b.mu)
+        got = P.jacobi_sweeps_pallas_single(*args, lcp_b.fidx, mb.contact_iters)
+        want = _jacobi(*args, lcp_b.fidx, mb.contact_iters)
+        host = P.host_sweeps(*args, lcp_b.fidx, mb.contact_iters, dtype=torch.float32)
+        torch.cuda.synchronize()
+        err_b, rel_b = sc.sweep_error(got, want)
+        exact_b = bool(torch.equal(got.cpu(), host))
+        R_b, p_b = fk(mb, fin_b.q)
+        limit_b = 2e-3 if name == "ball" else 5e-3  # tests/test_bilateral.py's bounds
+        if name == "ball":
+            gap = p_b[:, 0].norm(dim=-1).max().item()
+        else:
+            rel = R_b[:, 0].transpose(-1, -2) @ R_b[:, 1]
+            gap = max((rel - mb.weld_rel_rot[0]).abs().max().item(),
+                      ((p_b[:, 1] - p_b[:, 0]).norm(dim=-1) - 0.4).abs().max().item())
+        print(f"[bilateral] on {card}, {name}, B={B} f32, D={lcp_b.b.shape[-1]} rows (lo -inf, hi +inf), "
+              f"200 steps "
+              f"with lowrank_pallas: {launches_b} sweep launches; "
+              f"{'anchor gap' if name == 'ball' else 'relative pose error'} max {gap:.3e} (limit "
+              f"{limit_b:g}); first step's lam: "
+              f"kernel vs _jacobi max relative {rel_b:.3e} (limit {sc.REL_F32:g}), == host build bit for "
+              f"bit {exact_b}")
+        check(launches_b == 200, f"{name}: expected 200 sweep launches, got {launches_b}")
+        check(gap <= limit_b, f"{name}: the constraint drifted")
+        check(sc.sweep_ok(got, want), f"{name}: the sweep kernel disagrees with _jacobi on bilateral rows")
+        check(exact_b, f"{name}: the sweep kernel differs from its host build on bilateral rows")
+    five = [JointType.SCREW, JointType.UNIVERSAL, JointType.EULER, JointType.TRANSLATIONAL,
+            JointType.TRANSLATIONAL2D]
+    Bc = 256
+    rng_c = np.random.RandomState(5)
+    q_ch, v_ch = rng_c.randn(Bc, 11) * 0.3, rng_c.randn(Bc, 11) * 0.5
+    outs_c = []
+    for dev in ("cuda", "cpu"):
+        mch = chain(n=5, jtypes=five, dtype=torch.float64, device=dev)
+        st = State(q=torch.tensor(q_ch, device=dev), v=torch.tensor(v_ch, device=dev))
+        with torch.no_grad():
+            outs_c.append(S.rollout_final(mch, st, torch.zeros(100, Bc, mch.nv, dtype=torch.float64,
+                                                                device=dev)))
+    dq_c = (outs_c[0].q.cpu() - outs_c[1].q).abs().max().item()
+    dv_c = (outs_c[0].v.cpu() - outs_c[1].v).abs().max().item()
+    print(f"[bilateral] on {card}, chain of SCREW, UNIVERSAL, EULER, TRANSLATIONAL, TRANSLATIONAL2D, "
+          f"B={Bc} f64, "
+          f"100 steps, card vs CPU: max |dq| {dq_c:.3e}, |dv| {dv_c:.3e} (limit 1e-9)")
+    check(dq_c <= 1e-9 and dv_c <= 1e-9, "the new joint types differ between the card and the CPU")
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -897,6 +1154,7 @@ def main():
         "source": "diffdart_tpu_torch/ops/csrc/jacobi_sweeps.cu",
         "replaces": replaces,
         "launches": launches_,
+        **extra,
         "max_abs_err": sweep_errs[torch.float32, B],
         "ms": rd["cold"],
         "warm_ms": rd["warm"],
@@ -904,9 +1162,10 @@ def main():
         "bound_ms": sweep_bound_ms,
         "bound_by": "operations" if sw_to >= sw_tb else "bytes",
         "library_ms": None,
-    } for name, replaces, launches_, rd in (
-        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15),
-        ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, rd14))]
+    } for name, replaces, launches_, rd, extra in (
+        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15, {}),
+        ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, rd14,
+         {"launches_fallback_bptt": launches_bptt, "launches_per_jacobian_set": jac_launches}))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "

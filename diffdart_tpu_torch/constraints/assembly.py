@@ -1,14 +1,18 @@
-"""Constraint assembly: contacts + joint rows -> one boxed LCP, batch-first.
+"""Constraint assembly: contacts, joint rows and bilateral rows -> one
+boxed LCP, batch-first.
 
 Counterpart of diffdart_tpu/constraints/assembly.py. Row layout (static):
 
   [ nc normals | nc tangent-1 | nc tangent-2 | 2*nlim limits |
-    nservo servo rows | nfric joint-friction rows ]
+    nservo servo rows | nfric joint-friction rows |
+    3*nball ball rows | 6*nweld weld rows | nmimic mimic rows ]
 
 fidx couples each tangent row to its normal row (-1 elsewhere). Servo rows
 drive a dof's velocity to its target within +-force_limit*dt, joint-friction
-rows drive it to zero within +-joint_friction*dt. The ball, weld and mimic
-rows raise NotImplementedError (ROADMAP Queue 1 item 9).
+rows drive it to zero within +-joint_friction*dt. Ball, weld and mimic rows
+are bilateral (lo = -inf, hi = +inf), Baumgarte-stabilised equalities: a
+ball row holds the relative velocity of its anchor point at zero, a weld
+adds the relative angular velocity, a mimic row q_d - mult q_s.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 
 from diffdart_tpu_torch.collision.collide import Contacts, contact_slots, effective_contacts
 from diffdart_tpu_torch.dynamics.model import Model
-from diffdart_tpu_torch.math.lie import _mv, cross
+from diffdart_tpu_torch.math.lie import _mv, cross, log_so3, tf_apply
 
 
 class LCPData(NamedTuple):
@@ -32,19 +36,13 @@ class LCPData(NamedTuple):
     valid: torch.Tensor  # (B, D) bool
 
 
-def check_rows(model: Model) -> None:
-    if model.ball_pairs or model.weld_pairs or model.mimic_pairs:
-        raise NotImplementedError(
-            "ball, weld and mimic constraint rows are not ported to the torch vmap stack yet "
-            "(ROADMAP Queue 1 item 9)")
-
-
 def static_fidx(model: Model) -> tuple:
     """The static friction-index row layout as a Python tuple (it selects
-    the sweep kernel's coupling)."""
-    check_rows(model)
+    the sweep kernel's coupling), of length D, the bilateral rows
+    included."""
     nc = effective_contacts(model)
-    rest = 2 * len(model.limited_dofs) + len(model.servo_dofs) + len(model.friction_dofs)
+    rest = (2 * len(model.limited_dofs) + len(model.servo_dofs) + len(model.friction_dofs)
+            + 3 * len(model.ball_pairs) + 6 * len(model.weld_pairs) + len(model.mimic_pairs))
     return tuple([-1] * nc + list(range(nc)) + list(range(nc)) + [-1] * rest)
 
 
@@ -73,14 +71,14 @@ def _unit_rows(idx, nv, like):
 def assemble_constraints(model: Model, contacts: Contacts, Sw, mask, Minv, v_star, v_pre, qt, dt,
                          R_body=None, p_body=None, body_a=None, body_b=None) -> LCPData:
     """Build the boxed LCP over [normals | tangents1 | tangents2 | limits |
-    servo | joint friction] for a batch of envs.
+    servo | joint friction | ball | weld | mimic] for a batch of envs.
 
     Sw (B, nv, 6) world Jacobian columns; mask (nbody, nv) ancestor mask;
     Minv (B, nv, nv); v_star the unconstrained end-of-step velocity and
     v_pre the pre-step velocity (B, nv); qt (B, nv) tangent positions (for
     the limits); body_a, body_b (nc,) per-slot body indices (-1 = world),
-    by default the static slot layout."""
-    check_rows(model)
+    by default the static slot layout; R_body (B, nbody, 3, 3) and p_body
+    (B, nbody, 3) the body poses (for the ball and weld rows)."""
     dtype, dev = v_star.dtype, v_star.device
     batch = v_star.shape[:-1]
     nv = model.nv
@@ -112,7 +110,45 @@ def assemble_constraints(model: Model, contacts: Contacts, Sw, mask, Minv, v_sta
         rows.append(_unit_rows(servo, nv, v_star).expand(*batch, nservo, nv))
     if nfric:
         rows.append(_unit_rows(fric, nv, v_star).expand(*batch, nfric, nv))
-    D = 3 * nc + 2 * nlim + nservo + nfric
+    # bilateral ball / weld rows and their stabilisation errors
+    zero_mask = torch.zeros(nv, dtype=dtype, device=dev)
+
+    def bmask(bi):
+        return zero_mask if bi < 0 else mask[bi]
+
+    def pose(bi):
+        if bi < 0:
+            return torch.eye(3, dtype=dtype, device=dev), zero_mask.new_zeros(3)
+        return R_body[..., bi, :, :], p_body[..., bi, :]
+
+    def anchor_rows(ba, bb, anchor_a, anchor_b):
+        """The 3 rows of the relative velocity at the anchors' midpoint, the
+        anchors' gap, and the two body rotations."""
+        (Ra, pa), (Rb, pb) = pose(ba), pose(bb)
+        aw, bw = tf_apply(Ra, pa, anchor_a), tf_apply(Rb, pb, anchor_b)
+        Jp = point_jacobian(Sw, bmask(ba), bmask(bb), (0.5 * (aw + bw)).expand(*batch, 3))
+        return Jp.transpose(-1, -2), (aw - bw).expand(*batch, 3), Ra, Rb
+
+    bi_errs = []
+    for k, (ba, bb) in enumerate(model.ball_pairs):
+        Jp, gap, _, _ = anchor_rows(ba, bb, model.ball_anchor_a[k], model.ball_anchor_b[k])
+        rows.append(Jp)
+        bi_errs.append(gap)
+    for k, (ba, bb) in enumerate(model.weld_pairs):
+        Jp, gap, Ra, Rb = anchor_rows(ba, bb, model.weld_anchor_a[k], model.weld_anchor_b[k])
+        J_ang = (bmask(ba) - bmask(bb)).unsqueeze(-1) * Sw[..., :3]
+        rows += [Jp, J_ang.transpose(-1, -2)]
+        # orientation error: R_a rel R_b^T should be the identity
+        E_rot = Ra @ model.weld_rel_rot[k] @ Rb.transpose(-1, -2)
+        bi_errs += [gap, log_so3(E_rot).expand(*batch, 3)]
+    mimic = list(model.mimic_pairs)
+    nmimic = len(mimic)
+    if nmimic:
+        md, ms = [p[0] for p in mimic], [p[1] for p in mimic]
+        Jmi = _unit_rows(md, nv, v_star) - model.mimic_mult[:, None] * _unit_rows(ms, nv, v_star)
+        rows.append(Jmi.expand(*batch, nmimic, nv))
+    nbi = 3 * len(model.ball_pairs) + 6 * len(model.weld_pairs)
+    D = 3 * nc + 2 * nlim + nservo + nfric + nbi + nmimic
     J = torch.cat(rows, dim=-2) if rows else v_star.new_zeros(*batch, 0, nv)
 
     A = J @ Minv @ J.transpose(-1, -2)
@@ -170,6 +206,24 @@ def assemble_constraints(model: Model, contacts: Contacts, Sw, mask, Minv, v_sta
         mu_parts.append(full(len(dofs), 0.0))
         fidx_parts.append([-1] * len(dofs))
         valid_parts.append(torch.ones(*batch, len(dofs), dtype=torch.bool, device=dev))
+
+    start = 3 * nc + 2 * nlim + nservo + nfric
+    if nbi:
+        err = torch.cat(bi_errs, dim=-1)
+        b_parts.append(_mv(J[..., start:start + nbi, :], v_star) + (model.baumgarte_erp / dt) * err)
+    if nmimic:
+        # position error q_d - mult q_s - offset, corrected at the erp rate
+        # within the velocity cap of the other stabilised rows
+        err = qt[..., md] - model.mimic_mult * qt[..., ms] - model.mimic_offset
+        corr = torch.clamp(model.baumgarte_erp * err / dt, -erp_vel_cap, erp_vel_cap)
+        b_parts.append(_mv(J[..., start + nbi:start + nbi + nmimic, :], v_star) + corr)
+    for n in (nbi, nmimic):
+        if n:
+            lo_parts.append(full(n, -float("inf")))
+            hi_parts.append(full(n, float("inf")))
+            mu_parts.append(full(n, 0.0))
+            fidx_parts.append([-1] * n)
+            valid_parts.append(torch.ones(*batch, n, dtype=torch.bool, device=dev))
 
     def cat(parts):
         return torch.cat(parts, dim=-1) if parts else full(0, 0.0)

@@ -1,3 +1,3 @@
 """Model data and the vmap stack's dynamics. Counterpart of
-diffdart_tpu/dynamics/: model.py, joints.py (the fused subset's six joint
-types), kinematics.py and dynamics.py. shapes.py is not ported yet."""
+diffdart_tpu/dynamics/: model.py, joints.py (every joint
+type), kinematics.py and dynamics.py. shapes.py is not ported yet."""

@@ -24,7 +24,8 @@ def fk(model: Model, q):
     """World pose of every body frame: R (B, nbody, 3, 3), p (B, nbody, 3)."""
     Rs, ps = [], []
     for i in range(model.nbody):
-        Rj, pj = joint_transform(model.jtype[i], _body_q(model, q, i), model.axis[i], model.axis2[i])
+        Rj, pj = joint_transform(model.jtype[i], _body_q(model, q, i), model.axis[i], model.axis2[i],
+                                 model.screw_pitch[i])
         R_pc, p_pc = tf_compose(model.X_rot[i], model.X_pos[i], Rj, pj)
         par = model.parent[i]
         if par >= 0:
@@ -38,7 +39,8 @@ def world_jacobian(model: Model, q, R, p):
     """Per-dof world Jacobian columns Sw: (B, nv, 6)."""
     cols = []
     for i in range(model.nbody):
-        S = motion_subspace(model.jtype[i], _body_q(model, q, i), model.axis[i], model.axis2[i])
+        S = motion_subspace(model.jtype[i], _body_q(model, q, i), model.axis[i], model.axis2[i],
+                            model.screw_pitch[i])
         if S.shape[-2]:
             cols.append(transform_motion(R[..., i, None, :, :], p[..., i, None, :], S))
     if not cols:

@@ -11,12 +11,11 @@ Conventions: body 0..nbody-1 in topological order (parent[i] < i); the world
 is parent -1. Each body is connected to its parent by exactly one joint; the
 child body frame coincides with the joint's successor frame.
 
-Not yet supported here: CONVEX geoms (their hull comes from io/mesh.py,
-which is not ported; `add_geom` raises NotImplementedError) and the
-post-build bilateral constraints `add_ball_constraint`,
-`add_weld_constraint` and `add_mimic_constraint` (they need forward
-kinematics of the vmap stack). `ModelBuilder.add_mimic` is kept, since it
-only records topology.
+Bilateral constraints are added to a built model: `add_ball_constraint`
+and `add_weld_constraint` (anchors from forward kinematics at a pose) and
+`add_mimic_constraint`; `ModelBuilder.add_mimic` records a mimic at build
+time. Not yet supported here: CONVEX geoms (their hull comes from
+io/mesh.py, which is not ported; `add_geom` raises NotImplementedError).
 """
 from __future__ import annotations
 
@@ -199,6 +198,22 @@ class Model:
                 mask[b, lo : lo + n] = 1.0
                 a = self.parent[a]
         return mask
+
+    def astype(self, dtype) -> "Model":
+        """The model with every floating-point tensor field cast to `dtype`
+        (static topology and configuration untouched)."""
+        return self.replace(**{
+            name: x.to(dtype) for name in _ARRAY_FIELDS
+            if (x := getattr(self, name)) is not None and x.is_floating_point()})
+
+    @property
+    def quat_dof_mask(self) -> np.ndarray:
+        """(nq,) bool: True for q entries that are quaternion components."""
+        m = np.zeros(self.nq, dtype=bool)
+        for i in range(self.nbody):
+            if self.jtype[i] in (JointType.BALL, JointType.FREE):
+                m[self.q_off[i]:self.q_off[i] + 4] = True
+        return m
 
     def neutral_q(self, dtype=None) -> torch.Tensor:
         q = np.zeros(self.nq)
@@ -518,6 +533,78 @@ class ModelBuilder:
             mimic_mult=t([m for (_, _, m, _) in self.mimics]),
             mimic_offset=t([o for (_, _, _, o) in self.mimics]),
         )
+
+
+def _cat_rows(old, new):
+    return new if old is None or old.shape[0] == 0 else torch.cat([old, new])
+
+
+def _body_pose(model: Model, q, body):
+    """World (R, p) of `body` at q (nq,) (identity for the world, -1)."""
+    from diffdart_tpu_torch.dynamics.kinematics import fk
+
+    if body < 0:
+        return (torch.eye(3, dtype=model.dtype, device=model.device),
+                torch.zeros(3, dtype=model.dtype, device=model.device))
+    R, p = fk(model, q.unsqueeze(0))
+    return R[0, body], p[0, body]
+
+
+def _as_q(model: Model, q):
+    return model.neutral_q() if q is None else torch.as_tensor(q, dtype=model.dtype,
+                                                                device=model.device)
+
+
+def add_ball_constraint(model: Model, body_a: int, body_b: int, world_point, q=None) -> Model:
+    """Pin two bodies together at a world point (three bilateral LCP rows);
+    the anchors are that point in each body's frame at the pose q (nq,)
+    (default: neutral). Body -1 is the world."""
+    from diffdart_tpu_torch.math.lie import tf_apply, tf_inverse
+
+    q = _as_q(model, q)
+    x = torch.as_tensor(np.asarray(world_point, np.float64), dtype=model.dtype, device=model.device)
+
+    def local(body):
+        if body < 0:
+            return x
+        return tf_apply(*tf_inverse(*_body_pose(model, q, body)), x)
+
+    return model.replace(
+        ball_pairs=model.ball_pairs + ((body_a, body_b),),
+        ball_anchor_a=_cat_rows(model.ball_anchor_a, local(body_a)[None]),
+        ball_anchor_b=_cat_rows(model.ball_anchor_b, local(body_b)[None]),
+    )
+
+
+def add_weld_constraint(model: Model, body_a: int, body_b: int, q=None) -> Model:
+    """Weld two bodies rigidly (six bilateral LCP rows), holding the
+    relative pose they have at q (nq,) (default: neutral); the anchors are
+    the midpoint of their origins in each body's frame."""
+    q = _as_q(model, q)
+    Ra, pa = _body_pose(model, q, body_a)
+    Rb, pb = _body_pose(model, q, body_b)
+    mid = 0.5 * (pa + pb)
+    return model.replace(
+        weld_pairs=model.weld_pairs + ((body_a, body_b),),
+        weld_anchor_a=_cat_rows(model.weld_anchor_a, (Ra.T @ (mid - pa))[None]),
+        weld_anchor_b=_cat_rows(model.weld_anchor_b, (Rb.T @ (mid - pb))[None]),
+        weld_rel_rot=_cat_rows(model.weld_rel_rot, (Ra.T @ Rb)[None]),
+    )
+
+
+def add_mimic_constraint(model: Model, dof: int, src_dof: int, multiplier: float = 1.0,
+                         offset: float = 0.0) -> Model:
+    """Couple two scalar dofs: q[dof] = multiplier * q[src_dof] + offset, as
+    one bilateral LCP row (URDF <mimic>)."""
+    def grow(old, x):
+        new = torch.tensor([x], dtype=model.dtype, device=model.device)
+        return new if old is None else torch.cat([old, new])
+
+    return model.replace(
+        mimic_pairs=model.mimic_pairs + ((int(dof), int(src_dof)),),
+        mimic_mult=grow(model.mimic_mult, multiplier),
+        mimic_offset=grow(model.mimic_offset, offset),
+    )
 
 
 def enable_servo(model: Model, dofs, force_limit, target=None) -> Model:

@@ -59,13 +59,15 @@ def X_motion(R, p):
 def spatial_inertia(mass, com, inertia):
     """Body-frame 6x6 spatial inertia about the body origin (angular-first).
     mass (...,), com (..., 3) in the body frame, inertia (..., 3, 3) about
-    the COM."""
+    the COM; their leading axes broadcast (e.g. a per-env mass (B, nbody)
+    with a shared com (nbody, 3))."""
     c = skew(com)
     ct = c.transpose(-1, -2)
     m = mass[..., None, None]
     eye = _eye3(c)
-    top = torch.cat([inertia + m * (c @ ct), m * c], dim=-1)
-    bot = torch.cat([m * ct, m * eye], dim=-1)
+    blocks = torch.broadcast_tensors(inertia + m * (c @ ct), m * c, m * ct, m * eye)
+    top = torch.cat(blocks[:2], dim=-1)
+    bot = torch.cat(blocks[2:], dim=-1)
     return torch.cat([top, bot], dim=-2)
 
 

@@ -8,12 +8,15 @@ one (nv, nv) system per env:
 
     (cfm M + J^T (I+B) F J) u = J^T (I+B) r,   x = (r - F J u) / cfm.
 
-`boxed_lcp_lowrank` is a torch.autograd.Function: its backward is the
-transpose of the linear tangent map `_lowrank_jvp_tangent` (the JAX package
-builds it with jax.linear_transpose). The backward makes zero tangent
-leaves that require grad, evaluates the tangent map (linear in them) and
-calls torch.autograd.grad against the cotangent. The forward mode
-(`boxed_lcp_lowrank_jvp`) is not ported (ROADMAP Queue 1 item 7).
+`boxed_lcp_lowrank` applies `BoxedLcpLowrank`, a torch.autograd.Function
+with both modes of the one linear tangent map `_lowrank_jvp_tangent`: its
+`jvp` is the map (forward mode, the JAX package's `boxed_lcp_lowrank_jvp`)
+and its backward the map's transpose (the JAX package builds it with
+jax.linear_transpose; here zero tangent leaves that require grad go through
+the map and torch.autograd.grad takes the cotangent back to them). Given a
+`lam` from an earlier solve of the same problem, no solve runs (no sweeps,
+no polish) and both modes are the IFT's at it: the per-step recomputation
+of sim/step.py::rollout_checkpointed enters that way.
 
 Every matmul here runs at full float32 precision: TF32 is turned off for
 the solve (the Woodbury step amplifies rounding by about eps/cfm; the JAX
@@ -26,7 +29,8 @@ import contextlib
 import torch
 from torch.autograd.function import once_differentiable
 
-from diffdart_tpu_torch.ops.lcp import _bounds, _classify, _const_bound_values, _jacobi, _matvec, _nat_residual
+from diffdart_tpu_torch.ops.lcp import (
+    _bounds, _classify, _const_bound_values, _jacobi, _matvec, _nat_residual, _transpose)
 from diffdart_tpu_torch.ops.smalllinalg import cho_solve_small, cholesky_small, solve_nopivot_small
 
 _TOL = 1e-8
@@ -185,41 +189,47 @@ def _lowrank_jvp_tangent(J, M, cfm, b, lo, hi, mu, fidx, lam, dJ, dM, dcfm, db, 
 
 
 class BoxedLcpLowrank(torch.autograd.Function):
-    """lam = the boxed LCP's solution; backward = the transpose of the IFT
-    tangent map, evaluated by autograd through the map at zero tangents.
-    Saves the inputs and lam: the backward does not re-run the sweeps or the
+    """lam = the boxed LCP's solution, or the caller's `lam` when one is
+    given (no solve runs); jvp = the IFT tangent map, backward = its
+    transpose, evaluated by autograd through the map at zero tangents.
+    Saves the inputs and lam: neither mode re-runs the sweeps or the
     polish."""
 
     @staticmethod
-    def forward(ctx, J, M, cfm, b, lo, hi, mu, fidx, iters, passes, sweeps, pivot_iters):
-        lam = _solve_impl(J, M, cfm, b, lo, hi, mu, fidx, iters, passes, sweeps, pivot_iters)
-        ctx.save_for_backward(J, M, cfm, b, lo, hi, mu, lam)
-        ctx.fidx = fidx
-        return lam
+    def forward(J, M, cfm, b, lo, hi, mu, fidx, iters, passes, sweeps, pivot_iters, lam=None):
+        if lam is not None:
+            return lam.clone()
+        return _solve_impl(J, M, cfm, b, lo, hi, mu, fidx, iters, passes, sweeps, pivot_iters)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:7], output)
+        ctx.save_for_forward(*inputs[:7], output)
+        ctx.fidx = inputs[7]
+
+    @staticmethod
+    def jvp(ctx, dJ, dM, dcfm, db, dlo, dhi, dmu, *_):
+        J, M, cfm, b, lo, hi, mu, lam = ctx.saved_tensors
+        with full_precision():
+            return _lowrank_jvp_tangent(J, M, cfm, b, lo, hi, mu, ctx.fidx, lam, dJ, dM, dcfm, db,
+                                        dlo, dhi, dmu)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         J, M, cfm, b, lo, hi, mu, lam = (x.detach() for x in ctx.saved_tensors)
-        needs = ctx.needs_input_grad[:7]
-        none = (None,) * 5
-        if not any(needs):
-            return (None,) * 7 + none
-        with torch.enable_grad(), full_precision():
-            tangents = [torch.zeros_like(x, requires_grad=True) if need else None
-                        for x, need in zip((J, M, cfm, b, lo, hi, mu), needs)]
-            dlam = _lowrank_jvp_tangent(J, M, cfm, b, lo, hi, mu, ctx.fidx, lam, *tangents)
-            leaves = [t for t in tangents if t is not None]
-            if not dlam.requires_grad:
-                return (None,) * 7 + none
-            grads = iter(torch.autograd.grad(dlam, leaves, g, allow_unused=True))
-        return tuple(next(grads) if t is not None else None for t in tangents) + none
+        with full_precision():
+            grads = _transpose(
+                lambda *t: _lowrank_jvp_tangent(J, M, cfm, b, lo, hi, mu, ctx.fidx, lam, *t),
+                (J, M, cfm, b, lo, hi, mu), ctx.needs_input_grad[:7], g)
+        return grads + (None,) * 6
 
 
 def boxed_lcp_lowrank(J, M, cfm, b, lo, hi, mu, fidx, iters=8, passes=3, sweeps=_jacobi,
-                      pivot_iters=16):
+                      pivot_iters=16, lam=None):
     """Solve the boxed LCP with A = J M^-1 J^T + cfm I (see _solve_impl);
-    differentiable in J, M, cfm, b, lo, hi and mu through the IFT. cfm is a
-    0-d tensor; fidx (D,) long."""
+    differentiable in J, M, cfm, b, lo, hi and mu through the IFT, forward
+    and reverse. cfm is a 0-d tensor; fidx (D,) long. Given `lam` (B, D),
+    no solve runs and the derivatives are the IFT's at it."""
     return BoxedLcpLowrank.apply(J, M, cfm, b, lo, hi, mu, fidx, iters, passes, sweeps,
-                                 pivot_iters)
+                                 pivot_iters, lam)

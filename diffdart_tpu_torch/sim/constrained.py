@@ -3,13 +3,19 @@ integrate, batch-first.
 
 Counterpart of diffdart_tpu/sim/constrained.py. Gradients flow through the
 dynamics and the contact geometry by autograd and through the LCP solve by
-the IFT backward of ops/lcp_lowrank.py::BoxedLcpLowrank.
+the IFT, forward and reverse (ops/lcp_lowrank.py::BoxedLcpLowrank,
+ops/lcp.py::BoxedLcp).
 
 contact_solver: 'lowrank' runs the sweeps as plain PyTorch (_jacobi);
 'lowrank_pallas' runs them through ops/pallas_lcp.py, which launches the
 sweep kernel on CUDA tensors (and takes _jacobi only for CPU tensors; it
-never quietly uses the plain version on the card). The dense 'jacobi' and
-'pgs' solvers are not ported (ROADMAP Queue 1 item 4).
+never quietly uses the plain version on the card); 'jacobi' and 'pgs' run
+the dense boxed_lcp of ops/lcp.py (plain PyTorch, no kernel).
+
+`step_and_impulse` also returns the LCP impulse lambda, in the solve's
+dtype, and takes one back: given lambda, no solve runs and the step's
+derivatives are the IFT's at it (sim/step.py::rollout_checkpointed keeps
+lambda per step that way).
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from diffdart_tpu_torch.collision.collide import collide_world_with_bodies, sele
 from diffdart_tpu_torch.constraints.assembly import assemble_constraints
 from diffdart_tpu_torch.dynamics import dynamics as D
 from diffdart_tpu_torch.dynamics.model import Model, State
-from diffdart_tpu_torch.ops.lcp import _jacobi, _matvec, _nat_residual
+from diffdart_tpu_torch.ops.lcp import _jacobi, _matvec, _nat_residual, boxed_lcp
 from diffdart_tpu_torch.ops.lcp_lowrank import boxed_lcp_lowrank
 from diffdart_tpu_torch.ops.pallas_lcp import jacobi_sweeps_pallas_single
 from diffdart_tpu_torch.ops.smalllinalg import cho_solve_small, cholesky_small
@@ -52,25 +58,35 @@ def prepare_constrained(model: Model, state: State, tau=None):
     return lcp, M, Minv, v_star, dt
 
 
-def solve_contact_lcp(model: Model, lcp, M):
-    """The configured LCP solve on an assembled problem: lam (B, D)."""
+def solve_contact_lcp(model: Model, lcp, M, lam=None):
+    """The configured LCP solve on an assembled problem: lam (B, D) in the
+    state's dtype. `lam`: see _solve_lcp."""
+    return _solve_lcp(model, lcp, M, lam).to(lcp.b.dtype)
+
+
+def _solve_lcp(model: Model, lcp, M, lam=None):
+    """lam (B, D) in the solve's dtype (float64 under lcp_dtype='f64').
+    Given `lam` (an earlier result of this function on the same problem),
+    no solve runs and the derivatives are the IFT's at it."""
     dtype = lcp.b.dtype
     if model.lcp_dtype == "f64" and dtype != torch.float64:
-        # float64 island: promote the solve and its IFT gradient, demote the
-        # impulses (the casts are linear, so autograd composes)
+        # float64 island: promote the solve and its IFT gradient (the
+        # casts are linear, so autograd composes)
         f64 = torch.float64
         lcp64 = lcp._replace(J=lcp.J.to(f64), A=lcp.A.to(f64), b=lcp.b.to(f64), lo=lcp.lo.to(f64),
                              hi=lcp.hi.to(f64), mu=lcp.mu.to(f64))
-        return solve_contact_lcp(model.replace(lcp_dtype="state"), lcp64, M.to(f64)).to(dtype)
+        return _solve_lcp(model.replace(lcp_dtype="state"), lcp64, M.to(f64), lam)
+    if model.contact_solver in ("jacobi", "pgs"):
+        return boxed_lcp(lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu, lcp.fidx, model.contact_iters,
+                         model.contact_solver, model.lcp_polish, lam)
     if model.contact_solver not in ("lowrank", "lowrank_pallas"):
-        raise NotImplementedError(
-            f"contact_solver={model.contact_solver!r} (the dense boxed_lcp) is not ported to the "
-            f"torch vmap stack yet (ROADMAP Queue 1 item 4); use 'lowrank' or 'lowrank_pallas'")
+        raise ValueError(f"unknown contact_solver {model.contact_solver!r}; one of 'lowrank', "
+                         f"'lowrank_pallas', 'jacobi', 'pgs'")
     sweeps = jacobi_sweeps_pallas_single if model.contact_solver == "lowrank_pallas" else _jacobi
     cfm = torch.tensor(model.contact_cfm, dtype=dtype, device=lcp.b.device)
     return boxed_lcp_lowrank(lcp.J, M, cfm, lcp.b, lcp.lo, lcp.hi, lcp.mu, lcp.fidx,
                              model.contact_iters, 2 if model.lcp_polish else 0, sweeps,
-                             model.lcp_pivot_iters)
+                             model.lcp_pivot_iters, lam)
 
 
 def solver_diagnostics(model: Model, state: State, tau=None):
@@ -85,13 +101,21 @@ def solver_diagnostics(model: Model, state: State, tau=None):
     return _nat_residual(lam, lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu, lcp.fidx)
 
 
-def step_constrained(model: Model, state: State, tau=None) -> State:
+def step_and_impulse(model: Model, state: State, tau=None, lam=None):
+    """(next state, lam): lam (B, D) is the LCP impulse in the solve's dtype
+    (None when the LCP has no rows). Given `lam` from an earlier call at
+    the same (state, tau), no solve runs: the same step, whose derivatives
+    are the IFT's at lam."""
     lcp, M, Minv, v_star, dt = prepare_constrained(model, state, tau)
     if lcp.A.shape[-1] == 0:
-        v_new = v_star
+        v_new, lam = v_star, None
     else:
-        lam = solve_contact_lcp(model, lcp, M)
-        v_new = v_star + _matvec(Minv, _matvec(lcp.J.transpose(-1, -2), lam))
+        lam = _solve_lcp(model, lcp, M, lam)
+        v_new = v_star + _matvec(Minv, _matvec(lcp.J.transpose(-1, -2), lam.to(lcp.b.dtype)))
     q_new = D.integrate_positions(model, state.q, v_new, dt)
     t = state.t + dt if state.t is not None else None
-    return State(q=q_new, v=v_new, t=t)
+    return State(q=q_new, v=v_new, t=t), lam
+
+
+def step_constrained(model: Model, state: State, tau=None) -> State:
+    return step_and_impulse(model, state, tau)[0]

@@ -8,11 +8,11 @@ optionally t (B,); taus are (T, B, nv). The JAX package writes one env and
 vmaps it; here every per-env tensor carries the batch axis.
 
 Rollouts: `rollout` keeps the trajectory, `rollout_final` only the final
-state (autograd stores every step's graph), `rollout_checkpointed`
-recomputes each step in the backward pass (torch.utils.checkpoint per
-step; the JAX package saves the LCP impulse by name and re-runs everything
-else, while this version re-runs the LCP solve too: ROADMAP Queue 1 item
-4b), and `rollout_segmented` recomputes segment by segment.
+state (autograd stores every step's graph), `rollout_checkpointed` keeps
+each step's input and LCP impulse lambda and recomputes the rest of the
+step in the backward pass with that lambda (no second solve: the JAX
+package saves the impulse by name, `save_only_these_names("lcp_lam")`),
+and `rollout_segmented` recomputes segment by segment.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from diffdart_tpu_torch.dynamics import dynamics as D
-from diffdart_tpu_torch.dynamics.model import Model, State
+from diffdart_tpu_torch.dynamics.model import _ARRAY_FIELDS, Model, State
 from diffdart_tpu_torch.ops.smalllinalg import spd_solve_small
 
 
@@ -42,17 +42,32 @@ def step_unconstrained(model: Model, state: State, tau=None) -> State:
     return State(q=q_new, v=v_new, t=t)
 
 
-def step(model: Model, state: State, tau=None) -> State:
-    """Full timestep with contacts and joint rows (the unconstrained step
-    when the model has no collision pairs, limits or actuation rows)."""
+def _is_constrained(model: Model) -> bool:
+    """Whether the model's step has LCP rows: collision pairs, joint limits,
+    servo or joint-friction rows, or bilateral rows."""
     has_limits = model.enable_joint_limits and model.has_joint_limits
     has_actuation_rows = bool(model.servo_dofs) or bool(model.friction_dofs)
     has_bilateral = bool(model.ball_pairs) or bool(model.weld_pairs) or bool(model.mimic_pairs)
-    if not model.col_pairs and not has_limits and not has_actuation_rows and not has_bilateral:
-        return step_unconstrained(model, state, tau)
-    from diffdart_tpu_torch.sim.constrained import step_constrained
+    return bool(model.col_pairs) or has_limits or has_actuation_rows or has_bilateral
 
-    return step_constrained(model, state, tau)
+
+def step(model: Model, state: State, tau=None) -> State:
+    """Full timestep with contacts and joint rows (the unconstrained step
+    when the model has no collision pairs, limits, actuation or bilateral
+    rows)."""
+    return step_with_impulse(model, state, tau)[0]
+
+
+def step_with_impulse(model: Model, state: State, tau=None, lam=None):
+    """(next state, LCP impulse lam in the solve's dtype, or None for a
+    step without LCP rows). Given `lam` from an earlier call at the same
+    (state, tau), the step runs no solve (sim/constrained.py::
+    step_and_impulse)."""
+    if not _is_constrained(model):
+        return step_unconstrained(model, state, tau), None
+    from diffdart_tpu_torch.sim.constrained import step_and_impulse
+
+    return step_and_impulse(model, state, tau, lam)
 
 
 def rollout(model: Model, state: State, taus) -> tuple[State, State]:
@@ -82,14 +97,56 @@ def _step_tensors(model, q, v, t, tau):
     return s.q, s.v, s.t
 
 
+class _SavedImpulseStep(torch.autograd.Function):
+    """One step of rollout_checkpointed. Forward: the step without a graph,
+    keeping (q, v, tau, lam). Backward: the step again with that lam (no
+    solve), then autograd through it. The model tensors that require grad
+    are inputs (`params`, named by `names`), so their gradients flow."""
+
+    @staticmethod
+    def forward(ctx, model, names, q, v, tau, *params):
+        with torch.no_grad():
+            s, lam = step_with_impulse(model, State(q=q, v=v), tau)
+        ctx.model, ctx.names, ctx.has_lam = model, names, lam is not None
+        ctx.save_for_backward(q, v, tau, *params, *(() if lam is None else (lam,)))
+        return s.q, s.v
+
+    @staticmethod
+    def backward(ctx, gq, gv):
+        saved = ctx.saved_tensors
+        lam = saved[-1] if ctx.has_lam else None
+        q, v, tau, *params = saved[:-1] if ctx.has_lam else saved
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(need) for x, need in zip((q, v, tau, *params), needs)]
+            model = ctx.model.replace(**dict(zip(ctx.names, xs[3:])))
+            s, _ = step_with_impulse(model, State(q=xs[0], v=xs[1]), xs[2], lam)
+            leaves = [x for x in xs if x.requires_grad]
+            outs = [(o, g) for o, g in zip((s.q, s.v), (gq, gv)) if o.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in outs], leaves, [g for _, g in outs],
+                                             allow_unused=True) if outs and leaves else ())
+        return (None, None, *(next(grads, None) if x.requires_grad else None for x in xs))
+
+
+def _grad_params(model: Model):
+    """(names, tensors) of the model's tensor fields that require grad."""
+    names = tuple(n for n in _ARRAY_FIELDS if (x := getattr(model, n)) is not None and x.requires_grad)
+    return names, tuple(getattr(model, n) for n in names)
+
+
 def rollout_checkpointed(model: Model, state: State, taus) -> State:
-    """BPTT rollout with per-step recomputation: only each step's input
-    state is kept, and the backward pass re-runs the step (the LCP solve
-    included) before differentiating it."""
+    """BPTT rollout with per-step recomputation: each step keeps its input
+    state and its LCP impulse, and the backward pass re-runs the step with
+    that impulse (one LCP solve per step in all, in the forward pass) before
+    differentiating it. Returns the final state only."""
+    if not torch.is_grad_enabled():
+        return rollout_final(model, state, taus)
+    names, params = _grad_params(model)
     q, v, t = state.q, state.v, state.t
+    dt = model.dt.to(q.dtype)
     for k in range(taus.shape[0]):
-        q, v, t = checkpoint(_step_tensors, model, q, v, t, taus[k], use_reentrant=False,
-                             preserve_rng_state=False)
+        q, v = _SavedImpulseStep.apply(model, names, q, v, taus[k], *params)
+        t = t + dt if t is not None else None
     return State(q=q, v=v, t=t)
 
 

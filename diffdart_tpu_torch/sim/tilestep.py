@@ -18,9 +18,10 @@ matrix-free boxed LCP (phased Jacobi warm start + guarded Woodbury polish).
 Not yet supported (raise TileStepUnsupported, naming the slice that brings
 them): the hybrid lcp='xla' mode and with it `contact_budget` (slice with
 the Atlas-class humanoid), the AABB `pair_budget` broadphase (same slice),
-convex-hull contacts and their top-k slot selection (slice with io/mesh.py),
-and bilateral ball/weld/mimic rows (slice with the remaining constraint
-rows).
+and convex-hull contacts and their top-k slot selection (slice with
+io/mesh.py). The JAX tile step has no SCREW, UNIVERSAL, EULER,
+TRANSLATIONAL or TRANSLATIONAL2D joints and no bilateral ball/weld/mimic
+rows either: such models run on the vmap stack (sim/fast.py falls back).
 """
 from __future__ import annotations
 
@@ -127,7 +128,7 @@ def check_supported(model: Model, lcp: str = "auto") -> None:
             raise TileStepUnsupported(f"fused step: joint type {j} not supported yet")
     if model.ball_pairs or model.weld_pairs or model.mimic_pairs:
         raise TileStepUnsupported(
-            "fused step: bilateral/mimic rows come with the constraint-rows slice")
+            "fused step: bilateral/mimic rows are outside the fused subset (the vmap stack runs them)")
     if int(model.pair_budget or 0):
         raise TileStepUnsupported(
             "fused step: the AABB pair-budget broadphase comes with the humanoid slice")

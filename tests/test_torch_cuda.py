@@ -36,7 +36,11 @@ ops/sweep_check.py's limits (float64 1e-12, float32 1e-4, relative to
 max(1, |lam|)); the vmap step with contact_solver='lowrank_pallas' (the
 kernel) against 'lowrank' (_jacobi) per model: float64 q 1e-8, v 1e-6,
 float32 q 1e-4, v 5e-2, on >= 99% of envs (the polish amplifies the
-sweeps' rounding difference by about eps/cfm).
+sweeps' rounding difference by about eps/cfm). Bilateral rows (ball,
+weld, mimic: lo = -inf, hi = +inf) through the sweep kernel equal its host
+build bit for bit. The timestep Jacobians through the kernel (one launch
+per call) match those through _jacobi in float64, and a checkpointed BPTT
+launches the kernel once per step.
 """
 import numpy as np
 import pytest
@@ -489,3 +493,94 @@ def test_vmap_step_through_the_kernel_matches_plain_sweeps(model, dtype):
     ok = ((k.q - p.q).abs().amax(1) <= tq) & ((k.v - p.v).abs().amax(1) <= tv)
     assert torch.isfinite(k.q).all() and torch.isfinite(k.v).all()
     assert ok.double().mean() >= 0.99, ok.double().mean()
+
+
+@pytest.mark.cuda
+def test_jacobians_through_the_kernel_match_plain_sweeps():
+    """neural/jacobians.py::timestep_jacobians with 'lowrank_pallas' (the
+    sweep kernel, one launch per call) against 'lowrank' (_jacobi), the
+    half-cheetah at B = 64 in float64, on the envs whose LCP converged:
+    within ops/vjp_check.py's limits."""
+    _cuda()
+    from diffdart_tpu_torch.neural import timestep_jacobians
+    from diffdart_tpu_torch.sim.constrained import solver_diagnostics
+
+    m, q0 = _half_cheetah(torch.float64, "cuda")
+    q, v, tau = (torch.tensor(x, dtype=torch.float64, device="cuda") for x in inputs(q0, m.nq, m.nv, 64, 12))
+    q[:, 0] -= 0.1  # feet on the floor
+    mk = m.replace(contact_solver="lowrank_pallas")
+    with torch.no_grad():
+        conv = solver_diagnostics(mk, State(q=q, v=v), tau) < 1e-8
+    n0 = P.KERNEL_SINGLE.launches
+    jk = timestep_jacobians(mk, State(q=q, v=v), tau)
+    torch.cuda.synchronize()
+    assert P.KERNEL_SINGLE.launches == n0 + 1
+    jp = timestep_jacobians(m.replace(contact_solver="lowrank"), State(q=q, v=v), tau)
+    assert conv.sum() >= 8
+    for a, b in zip(jk, jp):
+        a, b = a[conv], b[conv]
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs() <= vc.VJP_RTOL * b.abs() + vc.VJP_ATOL * b.abs().max()).all()
+
+
+@pytest.mark.cuda
+def test_checkpointed_bptt_launches_the_sweeps_once_per_step():
+    """rollout_checkpointed keeps each step's LCP impulse: T sweep launches
+    in forward plus backward (half-cheetah, B = 512, T = 3, float32, the
+    mass requiring grad), a finite non-zero gradient."""
+    _cuda()
+    m = half_cheetah(dtype=torch.float32, device="cuda").replace(contact_solver="lowrank_pallas")
+    B, T = 512, 3
+    mass = m.mass.clone().requires_grad_(True)
+    state = State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
+    taus = (0.1 * torch.randn(T, B, m.nv, device="cuda")).requires_grad_(True)
+    n0 = P.KERNEL_SINGLE.launches
+    out = S.rollout_checkpointed(m.replace(mass=mass), state, taus)
+    (out.q[:, 1] ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert P.KERNEL_SINGLE.launches == n0 + T
+    for g in (taus.grad, mass.grad):
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+def _bilateral_models(dtype):
+    """A free body ball-pinned to the world and a welded pair of free bodies
+    (tests/test_bilateral.py), and a double pendulum with a mimic row."""
+    from diffdart_tpu_torch.dynamics.model import add_ball_constraint, add_mimic_constraint, add_weld_constraint
+    from diffdart_tpu_torch.models import double_pendulum
+
+    def free(n, **kw):
+        b = ModelBuilder(dt=1e-3)
+        for _ in range(n):
+            b.add_body(parent=-1, jtype=JointType.FREE, inertia=np.eye(3) * 0.01, **kw)
+        return b.finalize(dtype=dtype, device="cuda")
+
+    pair = free(2)
+    q = pair.neutral_q()
+    q[11] = 0.4
+    return {"ball": add_ball_constraint(free(1, com=(0.3, 0, 0)), -1, 0, world_point=(0, 0, 0)),
+            "weld": add_weld_constraint(pair, 0, 1, q=q),
+            "mimic": add_mimic_constraint(double_pendulum(dtype=dtype, device="cuda"), 1, 0, 0.5, 0.1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["ball", "weld", "mimic"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bilateral_rows_through_the_kernel_equal_host_build(model, dtype):
+    """LCPs with bilateral rows (lo = -inf, hi = +inf), B = 1001: the sweep
+    kernel equals its host build bit for bit and _jacobi within
+    ops/sweep_check.py's limits."""
+    _cuda()
+    m = _bilateral_models(dtype)[model]
+    rng = np.random.RandomState(13)
+    q = torch.tensor(m.neutral_q().cpu().numpy() + 1e-3 * rng.randn(1001, m.nq), dtype=dtype, device="cuda")
+    v = torch.tensor(0.5 * rng.randn(1001, m.nv), dtype=dtype, device="cuda")
+    with torch.no_grad():
+        lcp = prepare_constrained(m, State(q=q, v=v))[0]
+    assert torch.isinf(lcp.lo).all() and torch.isinf(lcp.hi).all()
+    args = (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu)
+    got = P.jacobi_sweeps_pallas_single(*args, lcp.fidx, m.contact_iters)
+    host = P.host_sweeps(*args, lcp.fidx, m.contact_iters, dtype=dtype)
+    want = _jacobi(*args, lcp.fidx, m.contact_iters)
+    assert torch.equal(got.cpu(), host)
+    assert sc.sweep_ok(got, want)

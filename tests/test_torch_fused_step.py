@@ -357,11 +357,11 @@ def test_unsupported_models_raise():
         fs.build_fused_step(universal)
     assert not supports_fused(universal)
     # outside the fused subset: rollout_fast warns and falls back to the vmap
-    # stack, which does not have UNIVERSAL joints yet either
+    # stack, which runs UNIVERSAL joints
     z = torch.zeros(2, 2, dtype=torch.float64)
-    with pytest.warns(UserWarning, match="outside the fused subset"), \
-            pytest.raises(NotImplementedError, match="vmap stack"):
-        rollout_fast(universal, State(q=z, v=z), torch.zeros(1, 2, 2, dtype=torch.float64))
+    with pytest.warns(UserWarning, match="outside the fused subset"):
+        out = rollout_fast(universal, State(q=z, v=z), torch.zeros(1, 2, 2, dtype=torch.float64))
+    assert out.q.shape == (2, 2) and torch.isfinite(out.q).all() and torch.isfinite(out.v).all()
     # in the plain version's subset, over a kernel cap: 17 contact pairs
     b = ModelBuilder(dt=1e-3)
     b.add_geom(-1, GeomType.PLANE)

@@ -273,11 +273,18 @@ def test_joint_maps_match_jax(jtype, joint_ref):
 
 
 def test_unported_joint_types_raise():
+    """Every joint type of the JAX package is ported (tests/
+    test_torch_bilateral.py holds the five of the last slice against it);
+    an id that is no joint type raises."""
     b = ModelBuilder(dt=1e-3)
     b.add_body(parent=-1, jtype=JointType.UNIVERSAL)
     m = b.finalize(**F64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        D.kinematics_cache(m, torch.zeros(2, 2, dtype=torch.float64), torch.zeros(2, 2, dtype=torch.float64))
+    R = D.kinematics_cache(m, torch.zeros(2, 2, dtype=torch.float64), torch.zeros(2, 2, dtype=torch.float64))["R"]
+    assert R.shape == (2, 1, 3, 3)
+    q, ax = torch.zeros(2, 1, dtype=torch.float64), T(_AXES[0])
+    for fn in (TJ.joint_transform, TJ.motion_subspace):
+        with pytest.raises(ValueError, match="unknown joint type"):
+            fn(11, q, ax, ax)
 
 
 # ---------------------------------------------------------------------------

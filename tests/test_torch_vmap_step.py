@@ -245,8 +245,10 @@ def test_lowrank_pallas_on_cpu_runs_the_plain_sweeps():
         b = S.step(m.replace(contact_solver="lowrank_pallas"), State(q=T(q), v=T(v)), T(tau))
     assert P.KERNEL_SINGLE.launches == n1
     assert torch.equal(a.q, b.q) and torch.equal(a.v, b.v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        S.step(m.replace(contact_solver="jacobi"), State(q=T(q), v=T(v)), T(tau))
+    # the dense solvers (tests/test_torch_lcp_dense.py) never take the kernel
+    with torch.no_grad():
+        c = S.step(m.replace(contact_solver="jacobi"), State(q=T(q), v=T(v)), T(tau))
+    assert P.KERNEL_SINGLE.launches == n1 and torch.isfinite(c.v).all()
 
 
 def test_solver_diagnostics_matches_jax():
@@ -288,3 +290,47 @@ def test_unconstrained_step_matches_jax():
     close(got.q, want.q)
     close(got.v, want.v)
     close(got.t, np.full(q.shape[0], 0.01))
+
+
+def test_rollout_checkpointed_solves_once_per_step(monkeypatch):
+    """rollout_checkpointed keeps each step's LCP impulse: the sweeps run T
+    times in forward plus backward (a per-step torch.utils.checkpoint
+    rollout, the version before, runs them 2T times), and the gradient wrt
+    the control tape and the body masses is that rollout's, to 1e-12
+    relative (worm, T = 4)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from diffdart_tpu_torch.ops.lcp import _jacobi
+    from diffdart_tpu_torch.sim import constrained
+
+    m, _, q, v, tau = batch("worm", seed=14)
+    m = m.replace(lcp_pivot_iters=0)
+    taus = np.tile(tau[None], (4, 1, 1)) * 0.3
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return _jacobi(*args)
+
+    monkeypatch.setattr(constrained, "_jacobi", counted)
+
+    def grads(roll):
+        mass = m.mass.clone().requires_grad_(True)
+        x = T(taus).requires_grad_(True)
+        final = roll(m.replace(mass=mass), State(q=T(q), v=T(v)), x)
+        return torch.autograd.grad((final.q**2).sum() + (final.v**2).sum(), (x, mass))
+
+    def per_step_checkpoint(model, s, x):
+        qq, vv, tt = s.q, s.v, s.t
+        for k in range(x.shape[0]):
+            qq, vv, tt = checkpoint(S._step_tensors, model, qq, vv, tt, x[k], use_reentrant=False,
+                                    preserve_rng_state=False)
+        return State(q=qq, v=vv, t=tt)
+
+    got = grads(S.rollout_checkpointed)
+    n_new = len(calls)
+    want = grads(per_step_checkpoint)
+    assert n_new == 4 and len(calls) - n_new == 8
+    for g, w in zip(got, want):
+        assert w.abs().max() > 0
+        close(g, w.numpy(), atol=1e-12 * w.abs().max().item(), rtol=1e-12)
