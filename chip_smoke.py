@@ -155,8 +155,51 @@ ops/csrc/jacobi_sweeps.cu, which replaces both Pallas sweep kernels):
                  (SCREW, UNIVERSAL, EULER, TRANSLATIONAL, TRANSLATIONAL2D),
                  100 steps in float64 on the card against the port on the
                  CPU, q and v within 1e-9.
-Then one JSON line with the kernels' numbers, the card line, and the
-result line {"ok": true, "device": {...}}.
+The Atlas-class humanoid (models/humanoid.py: URDF, convex-mesh feet,
+pelvis and torso, nv = 30, 33 contact slots) and the catapult:
+ 21. humanoid-build -- both models built on the card: nv, nq, contact slots,
+                 LCP rows D with all slots (147) and with contact_budget=12
+                 (84), the hulls' vertex and face counts; the sweep kernel's
+                 launch_config at each D in both dtypes (the direct path,
+                 bytes per warp, warps per SM; D within max_rows); every
+                 field of the humanoid on the card, hull buffers included,
+                 equal bit for bit to the same model built on the CPU.
+ 22. humanoid-sweeps -- the LCPs prepare_constrained assembles at a seeded
+                 perturbed standing state (the root 5 mm low, joints +-0.05
+                 rad, v ~ 0.1 N(0,1)): float32 B = 2048 with the budget
+                 (D = 84), float32 and float64 B = 256 with every slot
+                 (D = 147); the kernel against _jacobi within
+                 ops/sweep_check.py's limits and against its host build bit
+                 for bit; cold and warm device ms (sweep_device_ms) beside
+                 sweep_bound, and _jacobi's ms. One float64 step_batched call
+                 (B = 256): one jacobi_sweeps launch, >= 99% of envs within
+                 phase 13's tolerances of the vmap step.
+ 23. humanoid-main -- the JAX package's Atlas workload (its bench.py
+                 sections 2-3), float32, 'lowrank_pallas': the forward
+                 rollout, B = 256, T = 10, zero tau, every slot: T launches
+                 of jacobi_sweeps_single, no fused-step launch, a finite
+                 final state with the root above 0.2 m; the BPTT,
+                 rollout_checkpointed with contact_budget=12, B = 2048,
+                 T = 20, tau = 0.5 N(0,1) (with zero tau the gradient is
+                 zero by symmetry), loss mean(q_T[:, 2]^2) + 1e-4 mean(tau^2):
+                 T sweep launches, dtau finite and, less the regulariser's
+                 own gradient, non-zero on >= 99% of envs, peak memory; each
+                 timed with CUDA events, median of 5, as fwd and fwd+grad
+                 env-steps/s; one vmap step of each config under
+                 torch.profiler: kernels per step, device busy ms, idle share.
+ 24. humanoid-reference -- float64, B = 64, T = 5, budget 12, standing with
+                 tau = 0.5 N(0,1): the gradient of mean(q_T[:, 2]^2) over the
+                 converged envs (natural-map residual below 1e-8 at every
+                 step), through the kernel (T launches) against the plain
+                 sweeps ('lowrank'), within ops/vjp_check.py's limits;
+                 timestep_jacobians at B = 256, float32, standing: all seven
+                 blocks finite on >= 99% of envs, one sweep launch per call,
+                 median of 5 as env-Jacobian-sets/s; the catapult, B = 256,
+                 100 float32 steps through the kernel (100 launches), finite.
+Then one JSON line with the kernels' numbers (jacobi_sweeps_single also
+under "humanoid": its launches in phases 23-24 and its readings at each
+humanoid D beside their bounds), the card line, and the result line
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -396,6 +439,286 @@ def ops_per_env_step(model_cpu, q, v, tau):
     with torch.no_grad(), Count():
         step(q, v, tau)
     return Count.n
+
+
+def _script(name):
+    """The module scripts/<name>.py of this checkout, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def median_ms(fn, runs=5, warm=True):
+    """(median, min, max) ms of fn() over `runs` calls, each timed with CUDA
+    events, after one warm-up call (warm=False: fn has just run)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    r = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        r.append(start.elapsed_time(end))
+    r.sort()
+    return r[len(r) // 2], r[0], r[-1]
+
+
+def humanoid_state(m, B_, seed):
+    """A seeded perturbed standing state of the humanoid on the card: the
+    root 5 mm low, the joints +-0.05 rad, v ~ 0.1 N(0,1)."""
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.models import humanoid_init_q
+
+    rng = np.random.RandomState(seed)
+    q = np.tile(humanoid_init_q(m).cpu().numpy(), (B_, 1))
+    q[:, 6] -= 0.005
+    q[:, 7:] += 0.05 * (2 * rng.rand(B_, m.nq - 7) - 1)
+    v = 0.1 * rng.randn(B_, m.nv)
+    return State(q=torch.tensor(q, dtype=m.dtype, device="cuda"),
+                 v=torch.tensor(v, dtype=m.dtype, device="cuda"))
+
+
+def humanoid_phases(card, lib_sw, reset_counts):
+    """Phases 21-24: the Atlas-class humanoid (and the catapult) on the
+    card. Returns the sweep kernel's humanoid readings for the kernel line."""
+    from diffdart_tpu_torch.collision.collide import max_contacts
+    from diffdart_tpu_torch.constraints.assembly import static_fidx
+    from diffdart_tpu_torch.dynamics.model import State, model_to_numpy
+    from diffdart_tpu_torch.models import catapult, catapult_init_q, humanoid, humanoid_init_q
+    from diffdart_tpu_torch.neural import timestep_jacobians
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.ops import sweep_check as sc
+    from diffdart_tpu_torch.ops import vjp_check as vc
+    from diffdart_tpu_torch.ops.lcp import _jacobi
+    from diffdart_tpu_torch.sim import step as S
+    from diffdart_tpu_torch.sim.batched import step_batched
+    from diffdart_tpu_torch.sim.constrained import prepare_constrained, solver_diagnostics
+    device_profile = _script("torch_vmap_timing").device_profile
+
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+
+    # ---- 21. humanoid-build ----
+    mh = {dt: humanoid(dtype=dt, device="cuda") for dt in (f32, f64)}
+    m = mh[f32]
+    D_full, D_bud = len(static_fidx(m)), len(static_fidx(m.replace(contact_budget=12)))
+    cat = catapult(dtype=f32, device="cuda")
+    print(f"[humanoid-build] humanoid nv {m.nv}, nq {m.nq}, {m.nbody} bodies, {m.ngeom} geoms, "
+          f"{len(m.col_pairs)} ground pairs, {max_contacts(m)} contact slots; D = {D_full} LCP rows, "
+          f"{D_bud} with contact_budget=12; {len(m.hull_vcounts)} hulls (vertices {m.hull_vcounts}, "
+          f"faces {m.hull_fcounts}, padded to {m.hull_verts.shape[1]} / {m.hull_face_n.shape[1]}); "
+          f"catapult nv {cat.nv}, {max_contacts(cat)} slots, D = {len(static_fidx(cat))}")
+    check((m.nv, m.nq, max_contacts(m), D_full, D_bud) == (30, 31, 33, 147, 84), "bad humanoid layout")
+    check(len(m.hull_vcounts) == 4, "expected 4 hulls")
+    cfgs = {}
+    for dt in (f32, f64):
+        for D_ in (D_bud, D_full):
+            c = P.launch_config(dt, D_)
+            cfgs[str(dt)[6:], D_] = c
+            check(c["warps_per_sm"] > 0 and D_ <= P.max_rows(dt), f"the sweep kernel cannot take D = {D_}")
+            check(not c["register_path"], f"D = {D_} should take the direct path")
+    print("[humanoid-build] sweep kernel: " + "; ".join(
+        f"{k[0]} D = {k[1]}: {'register' if c['register_path'] else 'direct'} path, "
+        f"{c['warp_bytes']} bytes per warp, {c['warps_per_block']} warps per block, {c['warps_per_sm']} "
+        f"warps per SM" for k, c in cfgs.items())
+        + f"; row caps {P.max_rows(f32)} (float32), {P.max_rows(f64)} (float64)")
+    same = True
+    for dt in (f32, f64):
+        on_card, on_cpu = model_to_numpy(mh[dt]), model_to_numpy(humanoid(dtype=dt, device="cpu"))
+        for k, x in on_card.items():
+            y = on_cpu[k]
+            same &= bool(np.array_equal(x, y)) if isinstance(x, np.ndarray) else x == y
+    print(f"[humanoid-build] every field, hull buffers included, on the card == the same model built "
+          f"on the CPU bit for bit, both dtypes: {same}")
+    check(same, "the humanoid built on the card differs from the CPU build")
+
+    # ---- 22. humanoid-sweeps ----
+    out["shapes"] = []
+    it = m.contact_iters
+    for dt, budget, Bh in ((f32, 12, 2048), (f32, 0, 256), (f64, 0, 256)):
+        m_ = mh[dt].replace(contact_budget=budget)
+        with torch.no_grad():
+            lcp = prepare_constrained(m_, humanoid_state(m_, Bh, seed=7))[0]
+        D_ = lcp.b.shape[-1]
+        args = (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu)
+        got = P.jacobi_sweeps_pallas_single(*args, lcp.fidx, it)
+        want = _jacobi(*args, lcp.fidx, it)
+        torch.cuda.synchronize()
+        err, rel = sc.sweep_error(got, want)
+        exact = bool(torch.equal(got.cpu(), P.host_sweeps(*args, lcp.fidx, it, dtype=dt)))
+        with torch.no_grad():
+            cold, issue = sweep_device_ms(lib_sw, *args, lcp.fidx, it, copies=4)
+            warm, _ = sweep_device_ms(lib_sw, *args, lcp.fidx, it)
+            plain = cuda_ms(lambda: _jacobi(*args, lcp.fidx, it), reps=5)
+        bound, tb, to = sweep_bound(Bh, D_, it, dt)
+        name = str(dt)[6:]
+        print(f"[humanoid-sweeps] {name} B={Bh} D={D_} iters={it}: kernel vs _jacobi max |dlam| {err:.3e}, "
+              f"max relative {rel:.3e} (limit {sc.REL_F64 if dt == f64 else sc.REL_F32:g}); == host build "
+              f"bit for bit {exact}; on {card}: cold {cold:.4f} ms (4 rotating input copies), warm "
+              f"{warm:.4f} ms, bound {bound:.6f} ms ({'operations' if to >= tb else 'bytes'}), cold "
+              f"{cold / bound:.2f}x it; issuing one launch {issue:.4f} ms; plain _jacobi {plain:.4f} ms")
+        check(sc.sweep_ok(got, want), f"humanoid sweeps: the kernel disagrees with _jacobi ({name}, D={D_})")
+        check(exact, f"humanoid sweeps: the kernel differs from its host build ({name}, D={D_})")
+        check(issue < cold, "the sweep kernel's timing waited on the host")
+        out["shapes"].append({"B": Bh, "D": D_, "dtype": name, "max_abs_err": err, "ms": cold,
+                              "warm_ms": warm, "plain_ms": plain, "bound_ms": bound,
+                              "bound_by": "operations" if to >= tb else "bytes"})
+    m64b = mh[f64].replace(lcp_pivot_iters=0)
+    st_b = humanoid_state(m64b, 256, seed=8)
+    tau_b = torch.zeros(256, m64b.nv, dtype=f64, device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        sb = step_batched(m64b, st_b, tau_b)
+        torch.cuda.synchronize()
+        out["launches_step_batched"] = P.KERNEL.launches
+        sv = S.step(m64b, st_b, tau_b)
+    dq, dv = (sb.q - sv.q).abs().amax(1), (sb.v - sv.v).abs().amax(1)
+    share = ((dq <= 1e-7) & (dv <= 1e-5)).double().mean().item()
+    print(f"[humanoid-sweeps] step_batched, f64 B=256 D={D_full}: {out['launches_step_batched']} "
+          f"jacobi_sweeps launch; against the vmap step {100 * share:.2f}% of envs within q 1e-7, v 1e-5 "
+          f"(max |dq| {dq.max().item():.3e}, |dv| {dv.max().item():.3e})")
+    check(out["launches_step_batched"] == 1, "step_batched did not launch the batched sweep kernel once")
+    check(share >= 0.99, "step_batched disagrees with the vmap step on the humanoid")
+
+    # ---- 23. humanoid-main: forward rollout and BPTT through the kernel ----
+    mp = m.replace(contact_solver="lowrank_pallas")
+    Bf, Tf = 256, 10
+    st_f = State(q=humanoid_init_q(mp).repeat(Bf, 1), v=torch.zeros(Bf, mp.nv, device="cuda"))
+    taus_f = torch.zeros(Tf, Bf, mp.nv, device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        fin_f, _ = S.rollout(mp, st_f, taus_f)
+        torch.cuda.synchronize()
+        out["launches_rollout"] = P.KERNEL_SINGLE.launches
+        fused_launches = fs.KERNEL.launches
+    z = fin_f.q[:, 6]
+    finite_f = bool(torch.isfinite(fin_f.q).all() and torch.isfinite(fin_f.v).all())
+    print(f"[humanoid-main] rollout (vmap stack, lowrank_pallas) B={Bf} T={Tf} f32, zero tau, every slot "
+          f"(D = {D_full}): {out['launches_rollout']} jacobi_sweeps_single launches, {fused_launches} "
+          f"fused-step launches; root z min {z.min().item():.4f} max {z.max().item():.4f}; finite {finite_f}")
+    check(out["launches_rollout"] == Tf, f"expected {Tf} sweep launches in the humanoid rollout")
+    check(fused_launches == 0, "the fused step ran on the humanoid")
+    check(finite_f and bool((z > 0.2).all()), "bad final state of the humanoid rollout")
+    with torch.no_grad():
+        roll = median_ms(lambda: S.rollout(mp, st_f, taus_f))
+    mg = mp.replace(contact_budget=12)
+    Bg, Tg = 2048, 20
+    st_g = State(q=humanoid_init_q(mg).repeat(Bg, 1), v=torch.zeros(Bg, mg.nv, device="cuda"))
+    # tau = 0.5 N(0,1): with zero tau the loss's gradient is zero by the
+    # model's left-right symmetry (q[:, 2] is the root quaternion's y)
+    taus_g = torch.tensor(0.5 * np.random.RandomState(9).randn(Tg, Bg, mg.nv), dtype=f32, device="cuda")
+
+    def hbptt():
+        x = taus_g.clone().requires_grad_(True)
+        fin = S.rollout_checkpointed(mg, st_g, x)
+        ((fin.q[:, 2] ** 2).mean() + 1e-4 * (x**2).mean()).backward()
+        return x.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    g = hbptt()
+    torch.cuda.synchronize()
+    out["launches_bptt"] = P.KERNEL_SINGLE.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    x_r = taus_g.clone().requires_grad_(True)
+    (g_reg,) = torch.autograd.grad(1e-4 * (x_r**2).mean(), x_r)
+    d_dyn = g - g_reg
+    share_g = (d_dyn != 0).any(-1).any(0).double().mean().item()
+    finite_g = bool(torch.isfinite(g).all())
+    print(f"[humanoid-main] BPTT (rollout_checkpointed, contact_budget=12, D = {D_bud}) B={Bg} T={Tg} f32, "
+          f"tau = 0.5 N(0,1), loss mean(q_T[:, 2]^2) + 1e-4 mean(tau^2): {out['launches_bptt']} sweep "
+          f"launches; dtau finite {finite_g}, through the dynamics non-zero on {100 * share_g:.2f}% of "
+          f"envs, max {d_dyn.abs().max().item():.3e}; peak memory {peak:.3f} GB")
+    check(out["launches_bptt"] == Tg, f"expected {Tg} sweep launches in the humanoid BPTT")
+    check(finite_g and share_g >= 0.99, "bad humanoid BPTT gradient")
+    bptt = median_ms(hbptt, warm=False)  # hbptt has just run
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: S.step(mp, st_f, taus_f[0]), reps=5)
+        busy, kern, _, _ = device_profile(lambda: S.step(mp, st_f, taus_f[0]), steps=1)
+        step_g_ms = cuda_ms(lambda: S.step(mg, st_g, taus_g[0]), reps=5)
+        busy_g, kern_g, _, _ = device_profile(lambda: S.step(mg, st_g, taus_g[0]), steps=1)
+    out.update(fwd_env_steps_per_s=Bf * Tf / (roll[0] * 1e-3),
+               fwd_grad_env_steps_per_s=Bg * Tg / (bptt[0] * 1e-3))
+    print(f"[humanoid-main] timing on {card}: rollout median {roll[0]:.2f} ms (min {roll[1]:.2f}, max "
+          f"{roll[2]:.2f}, 5 runs) = {out['fwd_env_steps_per_s']:.6g} fwd env-steps/s; BPTT median "
+          f"{bptt[0]:.1f} ms (min {bptt[1]:.1f}, max {bptt[2]:.1f}, 5 runs) = "
+          f"{out['fwd_grad_env_steps_per_s']:.6g} fwd+grad env-steps/s; one vmap step (torch.profiler): "
+          f"B={Bf} D={D_full} {step_ms:.3f} ms, {kern:.0f} kernels, device busy {busy:.3f} ms, idle "
+          f"{100 * (1 - busy / step_ms):.1f}%; B={Bg} D={D_bud} {step_g_ms:.3f} ms, {kern_g:.0f} kernels, "
+          f"busy {busy_g:.3f} ms, idle {100 * (1 - busy_g / step_g_ms):.1f}%")
+
+    # ---- 24. humanoid-reference: f64 gradients, Jacobians, the catapult ----
+    m64r = mh[f64].replace(contact_budget=12, contact_solver="lowrank")
+    Br, Tr = 64, 5
+    st_r = State(q=humanoid_init_q(m64r).repeat(Br, 1), v=torch.zeros(Br, m64r.nv, dtype=f64, device="cuda"))
+    taus_r = torch.tensor(0.5 * np.random.RandomState(10).randn(Tr, Br, m64r.nv), dtype=f64, device="cuda")
+    conv = torch.ones(Br, dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        s_ = st_r
+        for t in range(Tr):
+            conv &= solver_diagnostics(m64r, s_, taus_r[t]) < 1e-8
+            s_ = S.step(m64r, s_, taus_r[t])
+    w = conv.double()
+
+    def grads(model):
+        x = taus_r.clone().requires_grad_(True)
+        fin = S.rollout_checkpointed(model, st_r, x)
+        return torch.autograd.grad((w * fin.q[:, 2] ** 2).sum() / w.sum(), x)[0]
+
+    reset_counts()
+    gk = grads(m64r.replace(contact_solver="lowrank_pallas"))
+    torch.cuda.synchronize()
+    launches_r = P.KERNEL_SINGLE.launches
+    gp = grads(m64r)
+    tol = vc.VJP_RTOL * gp.abs() + vc.VJP_ATOL * gp.abs().max()
+    ok_r = bool(((gk - gp).abs() <= tol)[:, conv].all())
+    print(f"[humanoid-reference] f64 B={Br} T={Tr} contact_budget=12, tau = 0.5 N(0,1), {int(conv.sum())} "
+          f"converged envs: d mean(q_T[:, 2]^2) / dtau through the kernel ({launches_r} launches) vs the "
+          f"plain sweeps, max |difference| {(gk - gp)[:, conv].abs().max().item():.3e} of max |dtau| "
+          f"{gp.abs().max().item():.3e} (limits rtol {vc.VJP_RTOL:g} + atol {vc.VJP_ATOL:g})")
+    check(launches_r == Tr, f"expected {Tr} sweep launches in the f64 humanoid gradient")
+    check(int(conv.sum()) >= Br // 2, "too few converged envs for the humanoid reference check")
+    check(bool(gp.abs().max() > 0), "zero reference gradient")
+    check(ok_r, "the humanoid's f64 gradient through the sweep kernel disagrees with the plain sweeps")
+
+    tau0 = torch.zeros(Bf, mp.nv, device="cuda")
+    reset_counts()
+    jac = timestep_jacobians(mp, st_f, tau0)
+    torch.cuda.synchronize()
+    out["launches_jacobians"] = P.KERNEL_SINGLE.launches
+    fin_j = torch.stack([torch.isfinite(x).flatten(1).all(1) for x in jac]).all(0).double().mean().item()
+    jt = median_ms(lambda: timestep_jacobians(mp, st_f, tau0), warm=False)
+    out["jacobian_sets_per_s"] = Bf / (jt[0] * 1e-3)
+    print(f"[humanoid-reference] timestep_jacobians B={Bf} f32 lowrank_pallas, standing, every slot: "
+          f"7 blocks, finite on {100 * fin_j:.2f}% of envs; {out['launches_jacobians']} sweep launch(es) "
+          f"per call; timing on {card}: median {jt[0]:.1f} ms (min {jt[1]:.1f}, max {jt[2]:.1f}, 5 runs) "
+          f"= {out['jacobian_sets_per_s']:.6g} env-Jacobian-sets/s")
+    check(len(jac) == 7 and tuple(jac.vel_vel.shape) == (Bf, 30, 30), "bad humanoid Jacobian shapes")
+    check(fin_j >= 0.99, "non-finite humanoid Jacobians on > 1% of envs")
+    check(out["launches_jacobians"] == 1, "expected 1 sweep launch per humanoid Jacobian call")
+
+    cp = cat.replace(contact_solver="lowrank_pallas")
+    Bc = 256
+    st_c = State(q=catapult_init_q(cp).repeat(Bc, 1), v=torch.zeros(Bc, cp.nv, device="cuda"))
+    with torch.no_grad():
+        reset_counts()
+        fin_c = S.rollout_final(cp, st_c, torch.zeros(100, Bc, cp.nv, device="cuda"))
+        torch.cuda.synchronize()
+        out["launches_catapult"] = P.KERNEL_SINGLE.launches
+    finite_c = bool(torch.isfinite(fin_c.q).all() and torch.isfinite(fin_c.v).all())
+    print(f"[humanoid-reference] catapult B={Bc} f32 lowrank_pallas, 100 steps: {out['launches_catapult']} "
+          f"sweep launches; finite {finite_c}; ball at {[round(x, 4) for x in fin_c.q[0, 6:9].tolist()]}")
+    check(out["launches_catapult"] == 100, "expected 100 sweep launches in the catapult run")
+    check(finite_c, "non-finite catapult state")
+    return out
 
 
 def main():
@@ -1122,6 +1445,9 @@ def main():
           f"100 steps, card vs CPU: max |dq| {dq_c:.3e}, |dv| {dv_c:.3e} (limit 1e-9)")
     check(dq_c <= 1e-9 and dv_c <= 1e-9, "the new joint types differ between the card and the CPU")
 
+    # ---- 21-24. the Atlas-class humanoid ----
+    hum = humanoid_phases(card, lib_sw, reset_counts)
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -1163,9 +1489,13 @@ def main():
         "bound_by": "operations" if sw_to >= sw_tb else "bytes",
         "library_ms": None,
     } for name, replaces, launches_, rd, extra in (
-        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15, {}),
+        ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15,
+         {"launches_humanoid_step_batched": hum["launches_step_batched"]}),
         ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, rd14,
-         {"launches_fallback_bptt": launches_bptt, "launches_per_jacobian_set": jac_launches}))]
+         {"launches_fallback_bptt": launches_bptt, "launches_per_jacobian_set": jac_launches,
+          "humanoid": {k: hum[k] for k in (
+              "launches_rollout", "launches_bptt", "launches_jacobians", "launches_catapult",
+              "shapes")}}))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "

@@ -1,3 +1,4 @@
-"""Collision of the vmap stack. Counterpart of diffdart_tpu/collision/; the
-plane pairs of narrowphase.py and collide.py (convex.py is not ported)."""
+"""Collision of the vmap stack. Counterpart of diffdart_tpu/collision/:
+narrowphase.py (every primitive pair), convex.py (hull and ellipsoid
+pairs) and collide.py (the pair plan and the contact budget)."""
 from diffdart_tpu_torch.collision.collide import Contacts, max_contacts  # noqa: F401

@@ -2,14 +2,19 @@
 
 Counterpart of diffdart_tpu/collision/collide.py. The pair list and the
 slots per pair are decided when the model is built (model.col_pairs), so
-every env has the same contact layout with a validity mask. Pairs are
-grouped by narrowphase function and each group runs as one batched call
-over (env, member).
+every env has the same contact layout with a validity mask. Primitive
+pairs are grouped by narrowphase function and each group runs as one
+batched call over (env, member); each pair with a convex hull (a CONVEX
+geom, or a box against one) runs on its own, on the model's padded hull
+buffers. Slots are in group order, as in the JAX package.
 
-Ported pairs: sphere, capsule and box against a plane. Other primitive
-pairs raise NotImplementedError (ROADMAP Queue 1 item 8); convex hulls,
-`contact_budget` below the slot count and the `pair_budget` broadphase raise
-too (Queue 1 item 6).
+Every pair type of the JAX package is dispatched: the primitive pairs of
+collision/narrowphase.py (a cylinder against a capsule, box or cylinder
+takes the capsule of its radius and length), the hull and ellipsoid pairs
+of collision/convex.py. With `Model.contact_budget` K below the slot count,
+select_contacts keeps each env's K deepest valid slots (ties in slot
+order). The `pair_budget` broadphase raises NotImplementedError (ROADMAP
+Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -17,19 +22,93 @@ from typing import NamedTuple
 
 import torch
 
+from diffdart_tpu_torch.collision import convex as CX
 from diffdart_tpu_torch.collision import narrowphase as NP
 from diffdart_tpu_torch.dynamics.model import GeomType, Model
 from diffdart_tpu_torch.math.lie import tf_compose
 
 _G = GeomType
 
+
+def _swap(out):
+    pos, n, d, v = out
+    return pos, -n, d, v
+
+
+def _cylinder_sphere(Ra, pa, sa, Rb, pb, sb):
+    return _swap(NP.sphere_cylinder(Rb, pb, sb, Ra, pa, sa))
+
+
 # (typeA, typeB) -> (fn, n_slots) in canonical order; a pair stored the other
 # way round runs with its geoms swapped into this order
 _DISPATCH = {
+    (_G.SPHERE, _G.SPHERE): (NP.sphere_sphere, 1),
     (_G.SPHERE, _G.PLANE): (NP.sphere_plane, 1),
+    (_G.SPHERE, _G.BOX): (NP.sphere_box, 1),
+    (_G.SPHERE, _G.CAPSULE): (NP.sphere_capsule, 1),
     (_G.CAPSULE, _G.PLANE): (NP.capsule_plane, 2),
+    (_G.CAPSULE, _G.CAPSULE): (NP.capsule_capsule, 1),
+    (_G.CAPSULE, _G.BOX): (NP.capsule_box, 3),
     (_G.BOX, _G.PLANE): (NP.box_plane, 8),
+    (_G.BOX, _G.BOX): (NP.box_box, 8),
+    (_G.CYLINDER, _G.PLANE): (NP.cylinder_plane, 8),
+    (_G.CYLINDER, _G.SPHERE): (_cylinder_sphere, 1),
+    # a cylinder against a capsule, box or cylinder: the capsule of the same
+    # radius and length
+    (_G.CYLINDER, _G.CAPSULE): (NP.capsule_capsule, 1),
+    (_G.CYLINDER, _G.BOX): (NP.capsule_box, 3),
+    (_G.CYLINDER, _G.CYLINDER): (NP.capsule_capsule, 1),
+    (_G.ELLIPSOID, _G.PLANE): (CX.ellipsoid_plane, 1),
+    (_G.SPHERE, _G.ELLIPSOID): (CX.sphere_ellipsoid, 1),
 }
+
+# pairs that need hull buffers, canonical order -> slots (the function is
+# built per pair by _make_hull_fn)
+_DISPATCH_HULL_SLOTS = {
+    (_G.CONVEX, _G.PLANE): 4,
+    (_G.SPHERE, _G.CONVEX): 1,
+    (_G.CAPSULE, _G.CONVEX): 3,
+    (_G.CYLINDER, _G.CONVEX): 3,  # the capsule of the cylinder, as against a box
+    (_G.BOX, _G.CONVEX): 4,
+    (_G.CONVEX, _G.CONVEX): 4,
+}
+
+
+def _hull_args(model: Model, g: int):
+    """(verts, face_n, face_b, vmask, fmask) of a CONVEX geom's padded hull,
+    or of a box seen as a hull."""
+    h = model.geom_hull[g]
+    if h >= 0:
+        dev = model.device
+        vmask = torch.arange(model.hull_verts.shape[1], device=dev) < model.hull_vcounts[h]
+        fmask = torch.arange(model.hull_face_n.shape[1], device=dev) < model.hull_fcounts[h]
+        return model.hull_verts[h], model.hull_face_n[h], model.hull_face_b[h], vmask, fmask
+    if model.geom_type[g] == _G.BOX:
+        return CX.box_as_hull(model.geom_size[g], model.dtype)
+    raise NotImplementedError(f"geom {g} has no hull representation")
+
+
+def _make_hull_fn(model: Model, ta: int, tb: int, ga: int, gb: int):
+    """fn(Ra, pa, Rb, pb) -> (pos, normal, depth, valid) for a hull pair in
+    canonical order; the normal pushes geom ga away from geom gb."""
+    if (ta, tb) == (_G.CONVEX, _G.PLANE):
+        def fn(Ra, pa, Rb, pb):
+            hv, _, _, vmask, _ = _hull_args(model, ga)
+            return CX.convex_plane(Ra, pa, hv, vmask, Rb, pb)
+    elif (ta, tb) == (_G.SPHERE, _G.CONVEX):
+        def fn(Ra, pa, Rb, pb):
+            hv, hn, hb, _, fmask = _hull_args(model, gb)
+            return CX.sphere_convex(Ra, pa, model.geom_size[ga], Rb, pb, hv, hn, hb, fmask)
+    elif (ta, tb) in ((_G.CAPSULE, _G.CONVEX), (_G.CYLINDER, _G.CONVEX)):
+        def fn(Ra, pa, Rb, pb):
+            hv, hn, hb, _, fmask = _hull_args(model, gb)
+            return CX.capsule_convex(Ra, pa, model.geom_size[ga], Rb, pb, hv, hn, hb, fmask)
+    elif (ta, tb) in ((_G.BOX, _G.CONVEX), (_G.CONVEX, _G.CONVEX)):
+        def fn(Ra, pa, Rb, pb):
+            return CX.convex_convex(Ra, pa, *_hull_args(model, ga), Rb, pb, *_hull_args(model, gb))
+    else:
+        raise NotImplementedError(f"no hull narrowphase for ({ta},{tb})")
+    return fn
 
 
 class Contacts(NamedTuple):
@@ -40,8 +119,8 @@ class Contacts(NamedTuple):
     normal: torch.Tensor  # (B, nc, 3) world normal, pushes body_a away from body_b
     depth: torch.Tensor  # (B, nc) penetration depth (> 0 = penetrating)
     valid: torch.Tensor  # (B, nc) bool
-    friction: torch.Tensor  # (nc,)
-    restitution: torch.Tensor  # (nc,)
+    friction: torch.Tensor  # (nc,); (B, K) after a contact budget's selection
+    restitution: torch.Tensor  # (nc,); (B, K) likewise
 
 
 def _pair_plan(model: Model):
@@ -53,34 +132,36 @@ def _pair_plan(model: Model):
     plan = []
     for (a, b) in model.col_pairs:
         ta, tb = model.geom_type[a], model.geom_type[b]
-        if _G.CONVEX in (ta, tb):
-            raise NotImplementedError(
-                "convex-hull pairs are not ported to the torch vmap stack yet (ROADMAP Queue 1 item 6)")
         if (ta, tb) in _DISPATCH:
             fn, k = _DISPATCH[(ta, tb)]
             plan.append(("prim", fn, k, a, b, False))
         elif (tb, ta) in _DISPATCH:
             fn, k = _DISPATCH[(tb, ta)]
             plan.append(("prim", fn, k, b, a, True))
+        elif (ta, tb) in _DISPATCH_HULL_SLOTS:
+            plan.append(("hull", _make_hull_fn(model, ta, tb, a, b), _DISPATCH_HULL_SLOTS[(ta, tb)],
+                         a, b, False))
+        elif (tb, ta) in _DISPATCH_HULL_SLOTS:
+            plan.append(("hull", _make_hull_fn(model, tb, ta, b, a), _DISPATCH_HULL_SLOTS[(tb, ta)],
+                         b, a, True))
         else:
-            raise NotImplementedError(
-                f"narrowphase for geom types ({ta},{tb}) is not ported to the torch vmap stack yet "
-                f"(ROADMAP Queue 1 item 8); ported: sphere, capsule and box vs plane")
+            raise NotImplementedError(f"no narrowphase for geom types ({ta},{tb})")
     return plan
 
 
 def _grouped_plan(model: Model):
     """The pair plan grouped by narrowphase function, in first-seen order:
-    [(kind, fn, k, members)] with members [(ga, gb, swapped), ...]. Slot
-    order is group order (contact_slots and collide_world_with_bodies both
-    derive from this)."""
+    [(kind, fn, k, members)] with members [(ga, gb, swapped), ...]; a hull
+    pair is a group of its own. Slot order is group order (contact_slots
+    and collide_world_with_bodies both derive from this)."""
     groups: dict = {}
     order = []
     for (kind, fn, k, ga, gb, swapped) in _pair_plan(model):
-        if fn not in groups:
-            groups[fn] = (kind, fn, k, [])
-            order.append(fn)
-        groups[fn][3].append((ga, gb, swapped))
+        key = fn if kind == "prim" else ("hull", ga, gb)
+        if key not in groups:
+            groups[key] = (kind, fn, k, [])
+            order.append(key)
+        groups[key][3].append((ga, gb, swapped))
     return [groups[key] for key in order]
 
 
@@ -96,26 +177,42 @@ def max_contacts(model: Model) -> int:
 
 
 def effective_contacts(model: Model) -> int:
-    """Contact slots entering the LCP. A contact budget below the slot count
-    (top-k selection) is not ported and raises."""
+    """Contact slots entering the LCP: every narrowphase slot, or the
+    contact budget when one is set below the slot count."""
     nc = max_contacts(model)
     if model.contact_budget and nc > model.contact_budget:
-        raise NotImplementedError(
-            "Model.contact_budget below the contact slot count is not ported to the torch vmap "
-            "stack yet (ROADMAP Queue 1 item 6)")
+        return model.contact_budget
     return nc
 
 
 def select_contacts(model: Model, contacts: Contacts, body_a=None, body_b=None):
-    """The LCP's contact set and per-slot body indices: the identity, since
-    a cutting contact budget raises (effective_contacts)."""
+    """The LCP's contact set and per-slot body indices. Without a budget:
+    the contacts as they are, with the static body indices (nc,). With a
+    budget K below the slot count: each env's K deepest valid slots
+    (depth scored -inf where invalid), deepest first and equal scores in
+    slot order (a stable sort, as lax.top_k orders ties); every field and
+    body index then per env, (B, K, ...). Which slots are kept changes
+    where contacts are made or broken, like the active set itself."""
     if body_a is None or body_b is None:
         sa, sb = contact_slots(model)
         dev = contacts.pos.device
         body_a = torch.tensor(sa, dtype=torch.long, device=dev)
         body_b = torch.tensor(sb, dtype=torch.long, device=dev)
-    effective_contacts(model)
-    return contacts, body_a, body_b
+    K = effective_contacts(model)
+    if K == contacts.pos.shape[-2]:
+        return contacts, body_a, body_b
+    score = torch.where(contacts.valid, contacts.depth, torch.full_like(contacts.depth, -float("inf")))
+    idx = torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :K]  # (B, K)
+    idx3 = idx.unsqueeze(-1).expand(*idx.shape, 3)
+    sel = Contacts(
+        pos=torch.gather(contacts.pos, -2, idx3),
+        normal=torch.gather(contacts.normal, -2, idx3),
+        depth=torch.gather(contacts.depth, -1, idx),
+        valid=torch.gather(contacts.valid, -1, idx),
+        friction=contacts.friction[idx],
+        restitution=contacts.restitution[idx],
+    )
+    return sel, body_a[idx], body_b[idx]
 
 
 def contact_slots(model: Model):
@@ -160,13 +257,17 @@ def collide_world_with_bodies(model: Model, R_body, p_body):
     for (kind, fn, k, members) in _grouped_plan(model):
         ga_i = [ga for (ga, _, _) in members]
         gb_i = [gb for (_, gb, _) in members]
-        Ra = torch.stack([Rg[g] for g in ga_i], dim=-3)
-        pa = torch.stack([pg[g] for g in ga_i], dim=-2)
-        Rb = torch.stack([Rg[g] for g in gb_i], dim=-3)
-        pb = torch.stack([pg[g] for g in gb_i], dim=-2)
-        sa = model.geom_size[ga_i].expand(*batch, len(members), 3)
-        sb = model.geom_size[gb_i].expand(*batch, len(members), 3)
-        pos, n, depth, valid = fn(Ra, pa, sa, Rb, pb, sb)  # (B, m, k, ...)
+        if kind == "hull":  # one pair, its hull buffers closed over by fn
+            (ga, gb, _), = members
+            pos, n, depth, valid = fn(Rg[ga], pg[ga], Rg[gb], pg[gb])  # (B, k, ...)
+        else:
+            Ra = torch.stack([Rg[g] for g in ga_i], dim=-3)
+            pa = torch.stack([pg[g] for g in ga_i], dim=-2)
+            Rb = torch.stack([Rg[g] for g in gb_i], dim=-3)
+            pb = torch.stack([pg[g] for g in gb_i], dim=-2)
+            sa = model.geom_size[ga_i].expand(*batch, len(members), 3)
+            sb = model.geom_size[gb_i].expand(*batch, len(members), 3)
+            pos, n, depth, valid = fn(Ra, pa, sa, Rb, pb, sb)  # (B, m, k, ...)
         pos_l.append(pos.reshape(*batch, -1, 3))
         n_l.append(n.reshape(*batch, -1, 3))
         d_l.append(depth.reshape(*batch, -1))

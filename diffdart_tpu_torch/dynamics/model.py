@@ -14,8 +14,11 @@ child body frame coincides with the joint's successor frame.
 Bilateral constraints are added to a built model: `add_ball_constraint`
 and `add_weld_constraint` (anchors from forward kinematics at a pose) and
 `add_mimic_constraint`; `ModelBuilder.add_mimic` records a mimic at build
-time. Not yet supported here: CONVEX geoms (their hull comes from
-io/mesh.py, which is not ported; `add_geom` raises NotImplementedError).
+time. A CONVEX geom takes a vertex cloud (`add_geom(..., verts=)`); at
+`finalize` each is reduced to its convex hull (io/mesh.py::convex_hull,
+at most `hull_max_verts` vertices) and the hulls are padded to one size as
+the JAX package pads them: vertices by repeating vertex 0, faces by
+repeating face 0 (`hull_vcounts` / `hull_fcounts` give the real counts).
 """
 from __future__ import annotations
 
@@ -327,6 +330,7 @@ class _Geom:
     pos: Any
     friction: float
     restitution: float
+    verts: Any = None  # CONVEX only: the vertex cloud, hulled at finalize
 
 
 class ModelBuilder:
@@ -397,15 +401,20 @@ class ModelBuilder:
         restitution: float = 0.0,
         verts=None,
     ) -> int:
-        if gtype == GeomType.CONVEX:
-            raise NotImplementedError(
-                "CONVEX geoms need the mesh hull of io/mesh.py, which the "
-                "torch port does not have yet")
+        """For gtype=CONVEX pass `verts` (N, 3), the mesh vertices in the geom
+        frame: the convex hull is built at finalize, and `size` becomes the
+        half-extents of the vertices' bounding box about the geom origin."""
         if rot is None:
             rot = np.eye(3)
+        if gtype == GeomType.CONVEX:
+            if verts is None:
+                raise ValueError("CONVEX geom requires verts")
+            verts = np.asarray(verts, np.float64)
+            lo, hi = verts.min(axis=0), verts.max(axis=0)
+            size = (hi - lo) / 2.0 + np.abs(hi + lo) / 2.0  # bounding box about the origin
         self.geoms.append(
             _Geom(body, gtype, np.asarray(size, np.float64), np.asarray(rot, np.float64),
-                  np.asarray(pos, np.float64), friction, restitution)
+                  np.asarray(pos, np.float64), friction, restitution, verts)
         )
         return len(self.geoms) - 1
 
@@ -471,6 +480,7 @@ class ModelBuilder:
             return t(np.stack([getattr(b, attr) for b in self.bodies]))
 
         ngeom = len(self.geoms)
+        geom_hull, hulls = _build_hulls(self.geoms, self.hull_max_verts)
         mimic_pairs = []
         for (cb, sb, mult, off) in self.mimics:
             for bi, role in ((cb, "mimicking"), (sb, "mimicked")):
@@ -510,12 +520,10 @@ class ModelBuilder:
             geom_pos=t(np.stack([g.pos for g in self.geoms]) if ngeom else np.zeros((0, 3))),
             geom_friction=t([g.friction for g in self.geoms]),
             geom_restitution=t([g.restitution for g in self.geoms]),
-            geom_hull=tuple(-1 for _ in self.geoms),
-            hull_vcounts=(),
-            hull_fcounts=(),
-            hull_verts=t(np.zeros((0, 0, 3))),
-            hull_face_n=t(np.zeros((0, 0, 3))),
-            hull_face_b=t(np.zeros((0, 0))),
+            geom_hull=geom_hull,
+            hull_vcounts=tuple(h[0].shape[0] for h in hulls),
+            hull_fcounts=tuple(h[1].shape[0] for h in hulls),
+            **{name: t(x) for name, x in _pad_hulls(hulls).items()},
             has_joint_limits=bool(np.any(q_lo > -1e8) or np.any(q_hi < 1e8)),
             limited_dofs=tuple(int(i) for i in np.nonzero((q_lo > -1e8) | (q_hi < 1e8))[0]),
             has_springs=bool(np.any(spring != 0.0)),
@@ -533,6 +541,38 @@ class ModelBuilder:
             mimic_mult=t([m for (_, _, m, _) in self.mimics]),
             mimic_offset=t([o for (_, _, _, o) in self.mimics]),
         )
+
+
+def _build_hulls(geoms, max_verts):
+    """(geom_hull, hulls): each CONVEX geom's hull slot (-1 for the others)
+    and its (vertices, face normals, face offsets), in geom order."""
+    from diffdart_tpu_torch.io.mesh import convex_hull
+
+    geom_hull, hulls = [], []
+    for g in geoms:
+        if g.gtype == GeomType.CONVEX:
+            geom_hull.append(len(hulls))
+            hulls.append(convex_hull(g.verts, max_verts=max_verts))
+        else:
+            geom_hull.append(-1)
+    return tuple(geom_hull), hulls
+
+
+def _pad_hulls(hulls) -> dict:
+    """The hull buffers, each hull padded to the largest: vertices by
+    repeating vertex 0, faces (normal and offset) by repeating face 0 (a
+    repeated vertex or plane changes no support or extremum)."""
+    if not hulls:
+        return dict(hull_verts=np.zeros((0, 0, 3)), hull_face_n=np.zeros((0, 0, 3)),
+                    hull_face_b=np.zeros((0, 0)))
+
+    def pad(k, n):
+        return np.stack([np.concatenate([h[k], np.repeat(h[k][:1], n - h[k].shape[0], 0)])
+                         for h in hulls])
+
+    HV = max(h[0].shape[0] for h in hulls)
+    HF = max(h[1].shape[0] for h in hulls)
+    return dict(hull_verts=pad(0, HV), hull_face_n=pad(1, HF), hull_face_b=pad(2, HF))
 
 
 def _cat_rows(old, new):

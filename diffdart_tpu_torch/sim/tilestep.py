@@ -15,11 +15,12 @@ capsule-plane, sphere-plane and box-plane (8-corner) contacts; joint limits
 on scalar dofs; velocity-servo and joint Coulomb friction rows; the
 matrix-free boxed LCP (phased Jacobi warm start + guarded Woodbury polish).
 
-Not yet supported (raise TileStepUnsupported, naming the slice that brings
-them): the hybrid lcp='xla' mode and with it `contact_budget` (slice with
-the Atlas-class humanoid), the AABB `pair_budget` broadphase (same slice),
-and convex-hull contacts and their top-k slot selection (slice with
-io/mesh.py). The JAX tile step has no SCREW, UNIVERSAL, EULER,
+Not yet supported (raise TileStepUnsupported, naming the ROADMAP item
+that brings them, Queue 1 item 6): the hybrid lcp='xla' mode and with it
+`contact_budget`, the AABB `pair_budget` broadphase, and convex-hull
+contacts and their top-k slot selection (`_topk_tile_slots`). Such models,
+the Atlas-class humanoid among them, run on the vmap stack (sim/fast.py
+falls back with a warning). The JAX tile step has no SCREW, UNIVERSAL, EULER,
 TRANSLATIONAL or TRANSLATIONAL2D joints and no bilateral ball/weld/mimic
 rows either: such models run on the vmap stack (sim/fast.py falls back).
 """
@@ -98,7 +99,8 @@ def contact_plan(model: Model) -> list:
             g, pl = b, a
         elif GeomType.CONVEX in (ta, tb):
             raise TileStepUnsupported(
-                "fused step: convex-hull contacts come with the io/mesh.py slice")
+                "fused step: convex-hull contacts are not in the fused subset yet (the tile step's "
+                "convex slots, ROADMAP Queue 1 item 6)")
         else:
             raise TileStepUnsupported(f"fused step: pair types ({ta},{tb}) not supported yet")
         if model.geom_body[pl] >= 0:
@@ -131,7 +133,7 @@ def check_supported(model: Model, lcp: str = "auto") -> None:
             "fused step: bilateral/mimic rows are outside the fused subset (the vmap stack runs them)")
     if int(model.pair_budget or 0):
         raise TileStepUnsupported(
-            "fused step: the AABB pair-budget broadphase comes with the humanoid slice")
+            "fused step: the AABB pair-budget broadphase is not ported (ROADMAP Queue 1 item 6)")
     qidx = dof_qidx(model)
     spring = _np(model.spring_stiff)
     for i in range(model.nv):
@@ -152,7 +154,7 @@ def check_supported(model: Model, lcp: str = "auto") -> None:
     if lcp == "xla" or (budget and budget < nc):
         raise TileStepUnsupported(
             "fused step: the hybrid lcp='xla' mode (D > 64 rows or a contact "
-            "budget) comes with the Atlas-class humanoid slice")
+            "budget) is not ported (ROADMAP Queue 1 item 6)")
 
 
 def lcp_rows(model: Model, nc: int) -> int:

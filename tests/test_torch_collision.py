@@ -82,6 +82,12 @@ def test_lcp_data_matches_jax(name, ref):
     assert static_fidx(m) == jax_static_fidx(_jm(name))
 
 
+def _jax_model(m):
+    from test_torch_vmap_dynamics import jax_model_of
+
+    return jax_model_of(m)
+
+
 def _jm(name):
     from test_torch_vmap_dynamics import jax_model_of
 
@@ -107,16 +113,34 @@ def test_tangent_basis_matches_jax():
 
 
 def test_unported_pairs_and_budgets_raise():
+    """The pair_budget broadphase still raises (Queue 1 item 6). The
+    cylinder-plane pair and a contact budget below the slot count raised
+    here until they were ported; on the same inputs they now run: the
+    cylinder's 8 rim slots equal the JAX package's, and a budget of 1 keeps
+    one slot."""
     b = ModelBuilder(dt=1e-3)
     b.add_geom(-1, GeomType.PLANE)
     body = b.add_body(parent=-1, jtype=JointType.FREE)
     b.add_geom(body, GeomType.CYLINDER, size=(0.1, 0.1, 0))
     m = b.finalize(dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        C.max_contacts(m)
+    assert C.max_contacts(m) == 8
+    q = m.neutral_q().numpy()
+    q[4:7] = (0.01, -0.02, 0.09)  # 1 cm into the ground
+    q[:4] = np.r_[1.0, 0.1, 0.05, 0.0] / np.linalg.norm([1.0, 0.1, 0.05, 0.0])  # tilted
+    cache = D.kinematics_cache(m, T(q[None]), torch.zeros(1, m.nv, dtype=torch.float64))
+    got, ga, gb = C.collide_world_with_bodies(m, cache["R"], cache["p"])
+    jc = JD.kinematics_cache(_jax_model(m), jnp.asarray(q), jnp.zeros(m.nv))
+    want, wa, wb = jax_collide(_jax_model(m), jc["R"], jc["p"])
+    for field in ("pos", "normal", "depth"):
+        close(getattr(got, field)[0], getattr(want, field), atol=1e-12, msg=field)
+    np.testing.assert_array_equal(got.valid[0].numpy(), np.asarray(want.valid))
+    assert got.valid.any()
     worm = batch("worm")[0]
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         C.max_contacts(worm.replace(pair_budget=1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        C.effective_contacts(worm.replace(contact_budget=1))
+    assert C.effective_contacts(worm.replace(contact_budget=1)) == 1
+    cache = D.kinematics_cache(worm, T(batch("worm")[2]), T(batch("worm")[3]))
+    one = C.select_contacts(worm.replace(contact_budget=1),
+                            *C.collide_world_with_bodies(worm, cache["R"], cache["p"]))
+    assert one[0].depth.shape[-1] == 1 and one[1].shape == one[0].depth.shape
     assert C.effective_contacts(worm.replace(contact_budget=99)) == C.max_contacts(worm)

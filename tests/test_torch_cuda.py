@@ -40,7 +40,10 @@ sweeps' rounding difference by about eps/cfm). Bilateral rows (ball,
 weld, mimic: lo = -inf, hi = +inf) through the sweep kernel equal its host
 build bit for bit. The timestep Jacobians through the kernel (one launch
 per call) match those through _jacobi in float64, and a checkpointed BPTT
-launches the kernel once per step.
+launches the kernel once per step. The Atlas-class humanoid's LCPs (D = 84
+with a contact budget of 12, 147 with every slot; the kernel's direct
+path) match _jacobi and the host build, and its rollout through the kernel
+launches it once per step.
 """
 import numpy as np
 import pytest
@@ -584,3 +587,67 @@ def test_bilateral_rows_through_the_kernel_equal_host_build(model, dtype):
     want = _jacobi(*args, lcp.fidx, m.contact_iters)
     assert torch.equal(got.cpu(), host)
     assert sc.sweep_ok(got, want)
+
+
+def _humanoid_lcp(dtype, budget, B, seed=21):
+    """The humanoid's LCPs on the card at a perturbed standing state (the
+    root 5 mm low, the joints +-0.05 rad, v ~ 0.1 N(0,1)): D = 84 with a
+    contact budget of 12, D = 147 with all 33 slots."""
+    from diffdart_tpu_torch.models import humanoid, humanoid_init_q
+
+    m = humanoid(dtype=dtype, device="cuda").replace(contact_budget=budget)
+    rng = np.random.RandomState(seed)
+    q = np.tile(humanoid_init_q(m).cpu().numpy(), (B, 1))
+    q[:, 6] -= 0.005
+    q[:, 7:] += 0.05 * (2 * rng.rand(B, m.nq - 7) - 1)
+    v = 0.1 * rng.randn(B, m.nv)
+    with torch.no_grad():
+        lcp = prepare_constrained(m, State(q=torch.tensor(q, dtype=dtype, device="cuda"),
+                                           v=torch.tensor(v, dtype=dtype, device="cuda")))[0]
+    return m, lcp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,budget", [(torch.float32, 12), (torch.float32, 0), (torch.float64, 0)])
+def test_humanoid_sweeps_match_plain_version_and_host_build(dtype, budget):
+    """The Atlas-class humanoid's LCPs (D = 84 and 147, B = 257), on the
+    kernel's direct path: against _jacobi within ops/sweep_check.py's
+    limits, and against the host build bit for bit."""
+    _cuda()
+    m, lcp = _humanoid_lcp(dtype, budget, B=257)
+    D = lcp.b.shape[-1]
+    assert D == (84 if budget else 147)
+    assert not P.launch_config(dtype, D)["register_path"]
+    args = (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu)
+    n0 = P.KERNEL_SINGLE.launches
+    got = P.jacobi_sweeps_pallas_single(*args, lcp.fidx, m.contact_iters)
+    torch.cuda.synchronize()
+    assert P.KERNEL_SINGLE.launches == n0 + 1
+    want = _jacobi(*args, lcp.fidx, m.contact_iters)
+    host = P.host_sweeps(*args, lcp.fidx, m.contact_iters, dtype=dtype)
+    assert sc.sweep_ok(got, want), sc.sweep_error(got, want)
+    assert torch.equal(got.cpu(), host)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_humanoid_rollout_through_the_kernel():
+    """The humanoid's vmap rollout with 'lowrank_pallas', float32, B = 256,
+    T = 10, zero tau, every slot: T sweep launches, a finite final state
+    with the root above 0.2; rollout_fast warns and takes the vmap stack."""
+    _cuda()
+    from diffdart_tpu_torch.models import humanoid, humanoid_init_q
+
+    m = humanoid(dtype=torch.float32, device="cuda").replace(contact_solver="lowrank_pallas")
+    B, T = 256, 10
+    state = State(q=humanoid_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
+    taus = torch.zeros(T, B, m.nv, device="cuda")
+    n0 = P.KERNEL_SINGLE.launches
+    with torch.no_grad():
+        fin = S.rollout_final(m, state, taus)
+    torch.cuda.synchronize()
+    assert P.KERNEL_SINGLE.launches == n0 + T
+    assert torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all()
+    assert (fin.q[:, 6] > 0.2).all()
+    with pytest.warns(UserWarning, match="outside the fused subset"), torch.no_grad():
+        rollout_fast(m, state, taus[:2])

@@ -108,9 +108,21 @@ def test_model_from_numpy_rejects_unknown_fields():
 
 
 def test_convex_geom_raises():
-    b = tm.ModelBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_geom(-1, tm.GeomType.CONVEX, verts=np.eye(3))
+    """A CONVEX geom, which raised here until hulls were ported, is built:
+    its hull (a box's 8 corners, 12 triangular faces) and every field equal
+    the JAX-built model's; one without verts raises."""
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-2, 2) for z in (-0.5, 0.5)], float)
+    models = []
+    for mod, kw in ((tm, F64), (jax_model_mod, {})):
+        b = mod.ModelBuilder()
+        body = b.add_body(parent=-1, jtype=mod.JointType.FREE)
+        b.add_geom(body, mod.GeomType.CONVEX, verts=corners + 0.1)
+        models.append(b.finalize(**kw))
+    m, jm = models
+    assert m.geom_hull == (0,) and m.hull_vcounts == (8,) and m.hull_fcounts == (12,)
+    _assert_same(tm.model_to_numpy(m), _jax_fields(jm))
+    with pytest.raises(ValueError, match="requires verts"):
+        tm.ModelBuilder().add_geom(-1, tm.GeomType.CONVEX)
 
 
 def test_cuda_default_raises_without_gpu():
