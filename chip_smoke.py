@@ -196,10 +196,58 @@ pelvis and torso, nv = 30, 33 contact slots) and the catapult:
                  blocks finite on >= 99% of envs, one sweep launch per call,
                  median of 5 as env-Jacobian-sets/s; the catapult, B = 256,
                  100 float32 steps through the kernel (100 launches), finite.
+Convex and hybrid models, the pair budget, the dynamics API and trajectory
+optimization (each model outside the fused kernel reaches the vmap stack
+only through rollout_fast's warning, which names the reason). At each new
+model's states the sweep kernel is held against _jacobi on the LCPs that
+prepare_constrained assembles, in the solve's dtype, within
+ops/sweep_check.py's limits ("[sweeps]" lines: the octahedron and the
+sphere field at their timed B in float32, the budgeted worm, the
+catapult's and the jump-worm's float64 islands):
+ 25. convex-hybrid -- tests/test_tilestep_hybrid.py's octahedron hull on a
+                 plane, rollout_fast, B = 4096, T = 10, float32,
+                 'lowrank_pallas': the warning names kernel 1's missing
+                 convex slots, T sweep launches, no fused-step launch,
+                 timed (median of 3); one step_batched call (one batched
+                 launch); float64, 16 envs, 10 re-synced steps: the card's
+                 vmap step against the CPU's plain fused step (its convex
+                 slots) within q 1e-7, v 1e-5; rollout_tiled on the card
+                 refuses the octahedron, naming the convex slots. The 2-link
+                 worm with contact_budget=3 (the hybrid LCP mode):
+                 rollout_tiled's hybrid branch on the card, B = 256, T = 5,
+                 float64, no fused-step launch, against the same on the CPU
+                 (q 1e-7, v 1e-5 on >= 99% of envs), timed (the first call,
+                 then a median of 3); rollout_fast on the
+                 budgeted worm names the hybrid reason and makes T sweep
+                 launches.
+ 26. pair-budget -- the sphere field (16 spheres: 16 sphere-plane and 120
+                 sphere-sphere pairs), pair_budget=8 (16 slots), B = 1024,
+                 T = 20, float32, 'lowrank_pallas': T sweep launches; ms per
+                 step, env-steps/s (median of 3), kernels per step and idle
+                 share (torch.profiler); one step_batched launch; float64,
+                 B = 8, T = 30, sparse (at most 8 plane pairs and one sphere
+                 pair touch): the budgeted trajectory equal to the full
+                 plan's (408 rows, plain sweeps) within 1e-9.
+ 27. dynamics-api -- the humanoid, B = 256, float64: forward_dynamics and
+                 inverse_dynamics on the card against the CPU (1e-10 of the
+                 largest magnitude), inverse(forward(tau)) = tau within 1e-8.
+ 28. trajectory -- the catapult's BPTT at examples/catapult_shooting.py's
+                 configuration (scripts/torch_catapult_shooting.py: T = 150,
+                 float32 + float64 island, Adam 0.5): 5 iterations (of 200),
+                 the loss falling, 150 sweep launches per iteration, ms per
+                 iteration (median); its float64 gradient at the warm start
+                 on the card against the CPU's within 1e-6; the jump-worm's
+                 iLQR at examples/jumpworm_ilqr.py's configuration
+                 (scripts/torch_jumpworm_ilqr.py): 2 iterations (of 20), ms
+                 per iteration and the share in the batched linearization;
+                 one MPC solve of examples/mpc_cartpole.py's configuration,
+                 timed.
 Then one JSON line with the kernels' numbers (jacobi_sweeps_single also
 under "humanoid": its launches in phases 23-24 and its readings at each
-humanoid D beside their bounds), the card line, and the result line
-{"ok": true, "device": {...}}.
+humanoid D beside their bounds, and under "slice9" its launches in phases
+25-28 and the max_abs_err of each "[sweeps]" comparison; jacobi_sweeps its
+step_batched launches of phases 22, 25 and 26),
+the card line, and the result line {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -718,6 +766,420 @@ def humanoid_phases(card, lib_sw, reset_counts):
           f"sweep launches; finite {finite_c}; ball at {[round(x, 4) for x in fin_c.q[0, 6:9].tolist()]}")
     check(out["launches_catapult"] == 100, "expected 100 sweep launches in the catapult run")
     check(finite_c, "non-finite catapult state")
+    return out
+
+
+def octa_model(dtype, device):
+    """tests/test_tilestep_hybrid.py's octahedron: a free body whose convex
+    hull has 6 vertices, on a plane, pivot refinement off."""
+    from diffdart_tpu_torch.dynamics.model import GeomType, JointType, ModelBuilder
+
+    b = ModelBuilder(dt=2e-3)
+    body = b.add_body(parent=-1, jtype=JointType.FREE, mass=1.0, inertia=np.eye(3) * 0.004)
+    verts = 0.1 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1.0]])
+    b.add_geom(body, GeomType.CONVEX, verts=verts, friction=0.6)
+    b.add_geom(-1, GeomType.PLANE, friction=0.6)
+    return b.finalize(dtype=dtype, device=device).replace(lcp_pivot_iters=0)
+
+
+def octa_state(B_, seed, dtype, device):
+    """Random attitudes, the centre 0.1 +- 0.04 above the plane, v ~ 0.5 N(0,1)."""
+    from diffdart_tpu_torch.dynamics.model import State
+
+    rng = np.random.RandomState(seed)
+    quat = rng.randn(B_, 4)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    pos = np.stack([0.05 * rng.randn(B_), 0.05 * rng.randn(B_), 0.1 + 0.04 * rng.randn(B_)], 1)
+    return State(q=torch.tensor(np.concatenate([quat, pos], 1), dtype=dtype, device=device),
+                 v=torch.tensor(0.5 * rng.randn(B_, 6), dtype=dtype, device=device))
+
+
+def sphere_field(n, budget, dtype, device):
+    """tests/test_broadphase.py's field: n free spheres (r = 0.1) over a
+    plane, n sphere-plane and n (n - 1) / 2 sphere-sphere pairs."""
+    from diffdart_tpu_torch.dynamics.model import GeomType, JointType, ModelBuilder
+
+    b = ModelBuilder(dt=2e-3)
+    for i in range(n):
+        bi = b.add_body(parent=-1, jtype=JointType.FREE, mass=0.5, inertia=np.eye(3) * 0.002)
+        b.add_geom(bi, GeomType.SPHERE, size=(0.1, 0, 0), friction=0.5)
+    b.add_geom(-1, GeomType.PLANE, friction=0.5)
+    m = b.finalize(dtype=dtype, device=device)
+    return m.replace(pair_budget=budget) if budget else m
+
+
+def field_q(n, B_, seed):
+    """A sparse field: spheres 0.5 m apart on a 4-wide grid, the first n/2
+    resting 0.5 mm into the plane, the rest 0.4 m up, spheres 0 and 1
+    5 mm into each other; each env's grid moved by 2 mm N(0,1) in x and y.
+    At most n/2 plane pairs and one sphere pair touch, so a pair budget of
+    n/2 culls only pairs that make no contact."""
+    rng = np.random.RandomState(seed)
+    q = np.array([[1.0, 0, 0, 0, (i % 4) * 0.5, (i // 4) * 0.5, 0.0995 if i < n // 2 else 0.5]
+                  for i in range(n)])
+    q[1, 4] = 0.195
+    q = np.tile(q[None], (B_, 1, 1))
+    q[:, :, 4:6] += 0.002 * rng.randn(B_, 1, 2)
+    return q.reshape(B_, 7 * n)
+
+
+def slice9_phases(card, reset_counts):
+    """Phases 25-28: convex and hybrid models, the pair-budget broadphase,
+    the dynamics API and trajectory optimization on the card. Returns the
+    sweep kernels' launch counts on these paths for the kernel line."""
+    import warnings
+
+    from diffdart_tpu_torch import dynamics as dyn
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.models import humanoid, jump_worm
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.ops import sweep_check as sc
+    from diffdart_tpu_torch.ops.lcp import _jacobi
+    from diffdart_tpu_torch.sim import step as S
+    from diffdart_tpu_torch.sim.batched import step_batched
+    from diffdart_tpu_torch.sim.constrained import prepare_constrained
+    from diffdart_tpu_torch.sim.fast import rollout_fast
+    from diffdart_tpu_torch.sim.tilestep import build_tile_step
+    device_profile = _script("torch_vmap_timing").device_profile
+
+    f32, f64 = torch.float32, torch.float64
+    out = {"shapes": []}
+
+    def sweeps_vs_plain(case, model, state, tau=None):
+        """The sweep kernel against _jacobi on the LCPs that
+        prepare_constrained assembles at `state`, in the solve's dtype
+        (float64 under lcp_dtype='f64'), as phase 22 does for the humanoid.
+        These launches are made outside the counted runs."""
+        with torch.no_grad():
+            lcp = prepare_constrained(model, state, tau)[0]
+            args = [lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu]
+            if model.lcp_dtype == "f64":
+                args = [x.to(f64) for x in args]
+            it = model.contact_iters
+            got = P.jacobi_sweeps_pallas_single(*args, lcp.fidx, it)
+            want = _jacobi(*args, lcp.fidx, it)
+        torch.cuda.synchronize()
+        err, rel = sc.sweep_error(got, want)
+        B_, D_ = lcp.b.shape
+        name = str(args[1].dtype)[6:]
+        active = (want.abs() > 0).double().mean().item()
+        print(f"[sweeps] {case}: B={B_} D={D_} {name} iters={it}: kernel vs _jacobi max |dlam| "
+              f"{err:.3e}, max relative {rel:.3e} (limit {sc.REL_F64 if name == 'float64' else sc.REL_F32:g}); "
+              f"{100 * active:.1f}% of impulses nonzero")
+        check(sc.sweep_ok(got, want), f"{case}: the sweep kernel disagrees with _jacobi (D={D_}, {name})")
+        out["shapes"].append({"case": case, "B": B_, "D": D_, "dtype": name, "max_abs_err": err,
+                              "max_rel_err": rel})
+
+    def warned_fallback(model, state, taus):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.no_grad():
+                fin = rollout_fast(model, state, taus)
+        return fin, [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+
+    # ---- 25. convex-hybrid: convex slots and the hybrid LCP ----
+    mo = octa_model(f32, "cuda").replace(contact_solver="lowrank_pallas")
+    Bo, To = 4096, 10
+    st_o = octa_state(Bo, 1, f32, "cuda")
+    taus_o = torch.tensor(0.1 * np.random.RandomState(2).randn(To, Bo, 6), dtype=f32, device="cuda")
+    reset_counts()
+    fin_o, msgs = warned_fallback(mo, st_o, taus_o)
+    torch.cuda.synchronize()
+    out["launches_convex_rollout"] = P.KERNEL_SINGLE.launches
+    fused_o = fs.KERNEL.launches
+    finite_o = bool(torch.isfinite(fin_o.q).all() and torch.isfinite(fin_o.v).all())
+    roll_o = median_ms(lambda: warned_fallback(mo, st_o, taus_o), runs=3)
+    print(f"[convex-hybrid] octahedron hull on a plane, rollout_fast B={Bo} T={To} f32 lowrank_pallas: "
+          f"warning {msgs[:1]}; {out['launches_convex_rollout']} jacobi_sweeps_single launches, {fused_o} "
+          f"fused-step launches; finite {finite_o}; timing on {card}: median {roll_o[0]:.2f} ms (min "
+          f"{roll_o[1]:.2f}, max {roll_o[2]:.2f}, 3 runs) = {Bo * To / (roll_o[0] * 1e-3):.6g} "
+          f"fwd env-steps/s")
+    check(len(msgs) == 1 and "kernel 1 has no convex slots" in msgs[0],
+          "rollout_fast did not name the convex reason")
+    check(out["launches_convex_rollout"] == To and fused_o == 0, "the convex model missed the vmap stack")
+    check(finite_o, "non-finite convex rollout")
+    reset_counts()
+    with torch.no_grad():
+        step_batched(mo, st_o, taus_o[0])
+    torch.cuda.synchronize()
+    out["launches_convex_step_batched"] = P.KERNEL.launches
+    check(out["launches_convex_step_batched"] == 1, "expected one batched sweep launch")
+    sweeps_vs_plain("octahedron", mo, st_o, taus_o[0])
+    # rollout_tiled on the card: the convex model is not in the hybrid LCP
+    # mode, so it is refused with the reason, as a model over a cap is
+    try:
+        fs.rollout_tiled(mo, st_o, taus_o)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[convex-hybrid] rollout_tiled on the card refuses the octahedron: {refused!r}")
+    check("kernel 1 has no convex slots" in refused, "rollout_tiled did not refuse the convex model")
+
+    # float64: the card's vmap step against the CPU's plain fused step (the
+    # tile twin with its convex slots), 16 envs, 10 re-synced steps
+    m64c = octa_model(f64, "cuda").replace(contact_solver="lowrank_pallas")
+    twin = build_tile_step(octa_model(f64, "cpu"), output="stacked")
+    st = octa_state(16, 3, f64, "cuda")
+    tau16 = torch.tensor(0.1 * np.random.RandomState(4).randn(16, 6), dtype=f64, device="cuda")
+    worst_q = worst_v = 0.0
+    share = 1.0
+    with torch.no_grad():
+        for _ in range(10):
+            sc_ = S.step(m64c, st, tau16)
+            qt, vt = twin(st.q.cpu().T.contiguous(), st.v.cpu().T.contiguous(), tau16.cpu().T.contiguous())
+            dq = (sc_.q.cpu() - qt.T).abs().amax(1)
+            dv = (sc_.v.cpu() - vt.T).abs().amax(1)
+            share = min(share, ((dq <= 1e-7) & (dv <= 1e-5)).double().mean().item())
+            worst_q, worst_v = max(worst_q, dq.max().item()), max(worst_v, dv.max().item())
+            st = State(q=sc_.q, v=sc_.v)
+    print(f"[convex-hybrid] f64, 16 envs, 10 re-synced steps: the card's vmap step vs the CPU's plain "
+          f"fused step (convex slots): max |dq| {worst_q:.3e}, |dv| {worst_v:.3e}; >= "
+          f"{100 * share:.1f}% of envs within q 1e-7, v 1e-5 at every step")
+    check(share >= 0.99, "the convex model's card step disagrees with the CPU's tile twin")
+
+    # the 2-link worm with contact_budget=3, for which lcp 'auto' picks the
+    # hybrid LCP: rollout_tiled's hybrid branch on the card against the CPU
+    Bw, Tw = 256, 5
+    rng = np.random.RandomState(6)
+    mc = jump_worm(dt=2e-3, n_links=2, dtype=f64, device="cuda").replace(contact_budget=3)
+    mcpu = jump_worm(dt=2e-3, n_links=2, dtype=f64, device="cpu").replace(contact_budget=3)
+    check(fs.lcp_mode(mc) == "xla", "the budgeted worm is not in the hybrid LCP mode")
+    q0 = mc.neutral_q().cpu().numpy() + np.array([0.06, 0.0, 0.25, -0.5])
+    q = np.tile(q0, (Bw, 1)) + 0.05 * rng.randn(Bw, mc.nq)
+    v = 0.3 * rng.randn(Bw, mc.nv)
+    taus = 0.15 * rng.randn(Tw, Bw, mc.nv)
+    st_c = State(q=torch.tensor(q, device="cuda"), v=torch.tensor(v, device="cuda"))
+    taus_c = torch.tensor(taus, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fin_c = fs.rollout_tiled(mc, st_c, taus_c)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        hyb = median_ms(lambda: fs.rollout_tiled(mc, st_c, taus_c), runs=3, warm=False)
+    fused_w = fs.KERNEL.launches
+    with torch.no_grad():
+        fin_h = fs.rollout_tiled(mcpu, State(q=torch.tensor(q), v=torch.tensor(v)), torch.tensor(taus))
+    dq = (fin_c.q.cpu() - fin_h.q).abs().amax(1)
+    dv = (fin_c.v.cpu() - fin_h.v).abs().amax(1)
+    ok_share = ((dq <= 1e-7) & (dv <= 1e-5)).double().mean().item()
+    check(ok_share >= 0.99, "rollout_tiled's hybrid branch disagrees between the card and the CPU")
+    check(fused_w == 0, "rollout_tiled launched the fused-step kernel for a hybrid model")
+    mb = jump_worm(dt=2e-3, n_links=2, dtype=f32, device="cuda").replace(
+        contact_budget=3, contact_solver="lowrank_pallas")
+    st_w = State(q=torch.tensor(np.tile(q0, (Bw, 1)), dtype=f32, device="cuda"),
+                 v=torch.zeros(Bw, mb.nv, dtype=f32, device="cuda"))
+    reset_counts()
+    fin_w, msgs_w = warned_fallback(mb, st_w, torch.zeros(Tw, Bw, mb.nv, device="cuda"))
+    torch.cuda.synchronize()
+    out["launches_hybrid_fallback"] = P.KERNEL_SINGLE.launches
+    print(f"[convex-hybrid] 2-link worm, budget 3, rollout_tiled's hybrid branch on the card, B={Bw} "
+          f"T={Tw} f64, vs the CPU: max |dq| {dq.max().item():.3e}, |dv| {dv.max().item():.3e}, "
+          f"{100 * ok_share:.1f}% of envs within q 1e-7, v 1e-5, {fused_w} fused-step launches; "
+          f"first call {first_ms:.0f} ms, then median {hyb[0]:.1f} ms (min {hyb[1]:.1f}, max "
+          f"{hyb[2]:.1f}, 3 runs); rollout_fast, f32: warning {msgs_w[:1]}, {out['launches_hybrid_fallback']} "
+          f"sweep launches")
+    check(len(msgs_w) == 1 and "hybrid LCP runs outside the kernel" in msgs_w[0],
+          "rollout_fast did not name the hybrid reason")
+    check(out["launches_hybrid_fallback"] == Tw, "the budgeted worm missed the sweep kernel")
+    check(bool(torch.isfinite(fin_w.q).all()), "non-finite budgeted worm")
+    sweeps_vs_plain("worm, budget 3", mb, State(q=torch.tensor(q, dtype=f32, device="cuda"),
+                                                v=torch.tensor(v, dtype=f32, device="cuda")))
+
+    # ---- 26. pair-budget: the AABB broadphase on the vmap stack ----
+    n, Bp, Tp = 16, 1024, 20
+    mpb = sphere_field(n, 8, f32, "cuda").replace(contact_solver="lowrank_pallas")
+    from diffdart_tpu_torch.collision.collide import max_contacts
+    st_p = State(q=torch.tensor(field_q(n, Bp, 7), dtype=f32, device="cuda"),
+                 v=torch.zeros(Bp, mpb.nv, dtype=f32, device="cuda"))
+    taus_p = torch.zeros(Tp, Bp, mpb.nv, dtype=f32, device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        fin_p, _ = S.rollout(mpb, st_p, taus_p)
+        torch.cuda.synchronize()
+        out["launches_pair_budget"] = P.KERNEL_SINGLE.launches
+        roll_p = median_ms(lambda: S.rollout(mpb, st_p, taus_p), runs=3)
+        busy_p, kern_p, _, _ = device_profile(lambda: S.step(mpb, st_p, taus_p[0]), steps=1)
+        step_p = cuda_ms(lambda: S.step(mpb, st_p, taus_p[0]), reps=5)
+        reset_counts()
+        step_batched(mpb, st_p, taus_p[0])
+        torch.cuda.synchronize()
+        out["launches_pair_budget_step_batched"] = P.KERNEL.launches
+    finite_p = bool(torch.isfinite(fin_p.q).all())
+    print(f"[pair-budget] sphere field n={n} ({n} sphere-plane, {n * (n - 1) // 2} sphere-sphere pairs), "
+          f"pair_budget=8: {max_contacts(mpb)} slots; rollout B={Bp} T={Tp} f32 lowrank_pallas: "
+          f"{out['launches_pair_budget']} sweep launches, finite {finite_p}; timing on {card}: median "
+          f"{roll_p[0]:.2f} ms (min {roll_p[1]:.2f}, max {roll_p[2]:.2f}, 3 runs) = {roll_p[0] / Tp:.3f} "
+          f"ms per step, {Bp * Tp / (roll_p[0] * 1e-3):.6g} env-steps/s; one step (torch.profiler) "
+          f"{step_p:.3f} ms, {kern_p:.0f} kernels, device busy {busy_p:.3f} ms, idle "
+          f"{100 * (1 - busy_p / step_p):.1f}%; step_batched {out['launches_pair_budget_step_batched']} "
+          f"batched launch")
+    check(max_contacts(mpb) == 16, "bad pair-budget slot count")
+    check(out["launches_pair_budget"] == Tp and out["launches_pair_budget_step_batched"] == 1,
+          "the pair-budget field missed the sweep kernel")
+    check(finite_p, "non-finite pair-budget rollout")
+    sweeps_vs_plain("sphere field, pair budget 8", mpb, st_p, taus_p[0])
+    # float64: budgeted against the full plan while the scene is sparse
+    # (both with the plain sweeps: the full plan's 408 rows are past the
+    # kernel's float64 cap)
+    Bs_, Ts_ = 8, 30
+    st_s = State(q=torch.tensor(field_q(n, Bs_, 8), dtype=f64, device="cuda"),
+                 v=torch.zeros(Bs_, 6 * n, dtype=f64, device="cuda"))
+    taus_s = torch.zeros(Ts_, Bs_, 6 * n, dtype=f64, device="cuda")
+    with torch.no_grad():
+        _, tr_b = S.rollout(sphere_field(n, 8, f64, "cuda"), st_s, taus_s)
+        _, tr_f = S.rollout(sphere_field(n, 0, f64, "cuda"), st_s, taus_s)
+    d_bf = (tr_b.q - tr_f.q).abs().max().item()
+    z_end = tr_f.q[-1].reshape(Bs_, n, 7)[:, :, 6]
+    print(f"[pair-budget] f64 B={Bs_} T={Ts_}, budget 8 vs the full plan ({3 * max_contacts(sphere_field(n, 0, f64, 'cuda'))} "
+          f"rows): max |dq| over the trajectory {d_bf:.3e} (limit 1e-9); heights at the end "
+          f"{z_end.min().item():.4f}-{z_end.max().item():.4f}")
+    check(d_bf <= 1e-9, "the budgeted field differs from the full plan while sparse")
+
+    # ---- 27. dynamics-api: forward and inverse dynamics of the humanoid ----
+    Bh = 256
+    mh64 = humanoid(dtype=f64, device="cuda")
+    rng = np.random.RandomState(12)
+    from diffdart_tpu_torch.models import humanoid_init_q
+    qh = np.tile(humanoid_init_q(mh64).cpu().numpy(), (Bh, 1))
+    qh[:, 7:] += 0.05 * rng.randn(Bh, mh64.nq - 7)
+    vh_, tauh = 0.3 * rng.randn(Bh, mh64.nv), rng.randn(Bh, mh64.nv)
+    args_c = [torch.tensor(x, dtype=f64, device="cuda") for x in (qh, vh_, tauh)]
+    qdd = dyn.forward_dynamics(mh64, *args_c)
+    tau_back = dyn.inverse_dynamics(mh64, args_c[0], args_c[1], qdd)
+    mh_cpu = humanoid(dtype=f64, device="cpu")
+    args_h = [torch.tensor(x, dtype=f64) for x in (qh, vh_, tauh)]
+    qdd_h = dyn.forward_dynamics(mh_cpu, *args_h)
+    tau_h = dyn.inverse_dynamics(mh_cpu, args_h[0], args_h[1], qdd_h)
+    e_fd = (qdd.cpu() - qdd_h).abs().max().item() / max(1.0, qdd_h.abs().max().item())
+    e_id = (tau_back.cpu() - tau_h).abs().max().item() / max(1.0, tau_h.abs().max().item())
+    e_rt = (tau_back - args_c[2]).abs().max().item()
+    fd_ms = cuda_ms(lambda: dyn.forward_dynamics(mh64, *args_c), reps=5)
+    print(f"[dynamics-api] humanoid B={Bh} f64: forward_dynamics card vs CPU {e_fd:.3e}, "
+          f"inverse_dynamics {e_id:.3e} (relative to max(1, max |x|), limit 1e-10); round trip "
+          f"max |inverse(forward(tau)) - tau| {e_rt:.3e} (limit 1e-8); forward_dynamics {fd_ms:.2f} ms")
+    check(e_fd <= 1e-10 and e_id <= 1e-10, "forward/inverse dynamics differ between the card and the CPU")
+    check(e_rt <= 1e-8, "inverse dynamics does not undo forward dynamics")
+
+    # ---- 28. trajectory: the catapult's BPTT, the jump-worm's iLQR, one MPC solve ----
+    cat_mod = _script("torch_catapult_shooting")
+    mcat = cat_mod.build("cuda")
+    roll_c, landing_x, us_hold = cat_mod.problem(mcat)
+    us = us_hold.clone()
+    us[:40, 0] += -20.0
+    us[:40, 1] += -6.0
+    us.requires_grad_(True)
+    opt = torch.optim.Adam([us], lr=0.5)
+    losses, times, launch_it = [], [], []
+    for _ in range(5):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = -landing_x(roll_c(us)) + 1e-5 * (us**2).sum()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        times.append(1e3 * (time.perf_counter() - t0))
+        launch_it.append(P.KERNEL_SINGLE.launches)
+    out["launches_catapult_iter"] = launch_it[-1]
+    print(f"[trajectory] catapult BPTT (examples/catapult_shooting.py's config: T=150, f32 + f64 island, "
+          f"lowrank_pallas, Adam 0.5; 5 of its 200 iterations): loss {[round(x, 3) for x in losses]}; "
+          f"{launch_it[-1]} sweep launches per iteration; median {sorted(times)[2]:.0f} ms per "
+          f"iteration on {card}")
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)), "the catapult's loss did not fall")
+    check(launch_it[-1] == 150, "expected one sweep launch per catapult step")
+    # float64 gradient at the warm start: card against CPU
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        m_ = cat_mod.build(dev).astype(f64).replace(lcp_dtype="state")
+        r_, lx_, h_ = cat_mod.problem(m_)
+        u_ = h_.clone()
+        u_[:40, 0] += -20.0
+        u_[:40, 1] += -6.0
+        u_.requires_grad_(True)
+        (g_,) = torch.autograd.grad(-lx_(r_(u_)) + 1e-5 * (u_**2).sum(), u_)
+        grads[dev] = g_.cpu()
+    e_g = ((grads["cuda"] - grads["cpu"]).abs().max() / grads["cpu"].abs().max()).item()
+    print(f"[trajectory] catapult f64 gradient at the warm start, card (lowrank_pallas) vs CPU (lowrank): "
+          f"max |difference| {e_g:.3e} of max |g| {grads['cpu'].abs().max().item():.3e} (limit 1e-6)")
+    check(e_g <= 1e-6, "the catapult's float64 gradient differs between the card and the CPU")
+    # the catapult's LCPs (float64 island): the initial state at the path's
+    # B = 1, and the warm start's first 40 states (the swing pulse) as one batch
+    from diffdart_tpu_torch.models import catapult_init_q
+    u_w = us_hold.clone()
+    u_w[:40, 0] += -20.0
+    u_w[:40, 1] += -6.0
+    tau_w = torch.cat([u_w, torch.zeros(u_w.shape[0], mcat.nv - 2, dtype=f32, device="cuda")], 1)
+    s_c = State(q=catapult_init_q(mcat)[None], v=torch.zeros(1, mcat.nv, dtype=f32, device="cuda"))
+    sweeps_vs_plain("catapult, initial state", mcat, s_c, tau_w[:1])
+    qs_c, vs_c = [], []
+    with torch.no_grad():
+        for t in range(40):
+            qs_c.append(s_c.q)
+            vs_c.append(s_c.v)
+            s_c = S.step(mcat, s_c, tau_w[t:t + 1])
+    sweeps_vs_plain("catapult, the warm start's first 40 states", mcat,
+                    State(q=torch.cat(qs_c), v=torch.cat(vs_c)), tau_w[:40])
+
+    worm_mod = _script("torch_jumpworm_ilqr")
+    import importlib
+    il = importlib.import_module("diffdart_tpu_torch.trajectory.ilqr")
+    mw = worm_mod.build("cuda")
+    f_w, rc_w, tc_w, x0_w, us0_w = worm_mod.problem(mw)
+    lin = [0.0]
+    inner = il._linearize
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = inner(*a)
+        torch.cuda.synchronize()
+        lin[0] += time.perf_counter() - t0
+        return r
+
+    il._linearize = timed
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res_w = il.ilqr(f_w, rc_w, tc_w, x0_w, us0_w, iters=2)
+        torch.cuda.synchronize()
+    finally:
+        il._linearize = inner
+    wall_w = time.perf_counter() - t0
+    out["launches_jumpworm_ilqr"] = P.KERNEL_SINGLE.launches
+    print(f"[trajectory] jump-worm iLQR (examples/jumpworm_ilqr.py's config: 3 links, dt 5e-3, T=60, f32 "
+          f"+ f64 island, lowrank_pallas; 2 of its 20 iterations): cost {res_w.cost_trace.tolist()}; "
+          f"{1e3 * wall_w / 2:.0f} ms per iteration on {card}, {100 * lin[0] / wall_w:.1f}% in the "
+          f"batched linearization (one step of B = 60 envs, 10 backward passes); "
+          f"{out['launches_jumpworm_ilqr']} sweep launches")
+    check(bool(torch.isfinite(res_w.xs).all()), "non-finite jump-worm iLQR")
+    check(out["launches_jumpworm_ilqr"] > 0, "the jump-worm's iLQR missed the sweep kernel")
+    # its LCPs (float64 island) at the B = 60 states of the linearization
+    xs_w, nq_w = res_w.xs[:-1], mw.nq
+    u_lin = worm_mod.U_MAX * torch.tanh(res_w.us / worm_mod.U_MAX)
+    sweeps_vs_plain("jump-worm, the iLQR trajectory", mw, State(q=xs_w[:, :nq_w], v=xs_w[:, nq_w:]),
+                    torch.cat([torch.zeros(u_lin.shape[0], 3, dtype=f32, device="cuda"), u_lin], 1))
+
+    from diffdart_tpu_torch.models import cartpole
+    from diffdart_tpu_torch.trajectory.ilqr import make_dynamics
+    from diffdart_tpu_torch.trajectory.mpc import MPC
+    mcp = cartpole(dt=0.02, dtype=f32, device="cuda")
+    f_c = make_dynamics(mcp, control_map=lambda u: torch.cat([u, torch.zeros_like(u)], dim=-1))
+    mpc = MPC(f_c, lambda x, u, t: 1e-3 * u[0] ** 2 + x[1] ** 2 + 0.1 * x[0] ** 2 + 0.01 * (x[2] ** 2 + x[3] ** 2),
+              lambda x: 100.0 * torch.sum(x**2), horizon=40, nu=1, dt=0.02, iters_per_solve=6)
+    x_c = torch.tensor([0.0, 0.6, 0.0, 0.0], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_m = mpc.solve(x_c, 0.0)
+    torch.cuda.synchronize()
+    mpc_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[trajectory] MPC solve (examples/mpc_cartpole.py's config: horizon 40, 6 iLQR iterations, "
+          f"f32): cost {res_m.cost_trace[0].item():.4f} -> {res_m.cost.item():.4f}, {mpc_ms:.0f} ms on {card}")
+    check(bool(res_m.cost <= res_m.cost_trace[0]) and bool(torch.isfinite(res_m.us).all()),
+          "bad MPC solve")
     return out
 
 
@@ -1448,6 +1910,9 @@ def main():
     # ---- 21-24. the Atlas-class humanoid ----
     hum = humanoid_phases(card, lib_sw, reset_counts)
 
+    # ---- 25-28. convex and hybrid models, the pair budget, the dynamics API, trajectories ----
+    s9 = slice9_phases(card, reset_counts)
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -1490,12 +1955,17 @@ def main():
         "library_ms": None,
     } for name, replaces, launches_, rd, extra in (
         ("jacobi_sweeps", "diffdart_tpu/ops/pallas_lcp.py:26", launches_batched, rd15,
-         {"launches_humanoid_step_batched": hum["launches_step_batched"]}),
+         {"launches_humanoid_step_batched": hum["launches_step_batched"],
+          "launches_convex_step_batched": s9["launches_convex_step_batched"],
+          "launches_pair_budget_step_batched": s9["launches_pair_budget_step_batched"]}),
         ("jacobi_sweeps_single", "diffdart_tpu/ops/pallas_lcp.py:124", launches_single, rd14,
          {"launches_fallback_bptt": launches_bptt, "launches_per_jacobian_set": jac_launches,
           "humanoid": {k: hum[k] for k in (
               "launches_rollout", "launches_bptt", "launches_jacobians", "launches_catapult",
-              "shapes")}}))]
+              "shapes")},
+          "slice9": {k: s9[k] for k in (
+              "launches_convex_rollout", "launches_hybrid_fallback", "launches_pair_budget",
+              "launches_catapult_iter", "launches_jumpworm_ilqr", "shapes")}}))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "

@@ -13,8 +13,10 @@ collision/narrowphase.py (a cylinder against a capsule, box or cylinder
 takes the capsule of its radius and length), the hull and ellipsoid pairs
 of collision/convex.py. With `Model.contact_budget` K below the slot count,
 select_contacts keeps each env's K deepest valid slots (ties in slot
-order). The `pair_budget` broadphase raises NotImplementedError (ROADMAP
-Queue 1 item 6).
+order). With `Model.pair_budget` P, a primitive group of more than P pairs
+first passes an AABB broadphase: each env keeps its P most-overlapping
+pairs (ties in pair order) and only those run the narrowphase, so their
+slots' body indices, friction and restitution are per env, (B, nc).
 """
 from __future__ import annotations
 
@@ -119,16 +121,13 @@ class Contacts(NamedTuple):
     normal: torch.Tensor  # (B, nc, 3) world normal, pushes body_a away from body_b
     depth: torch.Tensor  # (B, nc) penetration depth (> 0 = penetrating)
     valid: torch.Tensor  # (B, nc) bool
-    friction: torch.Tensor  # (nc,); (B, K) after a contact budget's selection
-    restitution: torch.Tensor  # (nc,); (B, K) likewise
+    friction: torch.Tensor  # (nc,); (B, nc) under a culling pair budget; (B, K) after a
+    #                         contact budget's selection
+    restitution: torch.Tensor  # likewise
 
 
 def _pair_plan(model: Model):
     """Static narrowphase plan: per pair (kind, fn, slots, ga, gb, swapped)."""
-    if model.pair_budget:
-        raise NotImplementedError(
-            "Model.pair_budget (the AABB broadphase) is not ported to the torch vmap stack yet "
-            "(ROADMAP Queue 1 item 6)")
     plan = []
     for (a, b) in model.col_pairs:
         ta, tb = model.geom_type[a], model.geom_type[b]
@@ -166,14 +165,58 @@ def _grouped_plan(model: Model):
 
 
 def _group_cap(model: Model, kind: str, members) -> int:
-    """Pairs from this group entering narrowphase: all of them (the
-    pair_budget broadphase is not ported; _pair_plan raises for it)."""
-    return len(members)
+    """Pairs from this group entering narrowphase: all of them, or the AABB
+    broadphase's budget (Model.pair_budget) for a larger primitive group."""
+    n = len(members)
+    if kind == "prim" and model.pair_budget and n > model.pair_budget:
+        return int(model.pair_budget)
+    return n
 
 
 def max_contacts(model: Model) -> int:
     return sum(k * _group_cap(model, kind, members)
                for (kind, _, k, members) in _grouped_plan(model))
+
+
+def _aabb_halfext(model: Model, g: int, Rg):
+    """Half-extents (B, 3) of geom g's world AABB under its world rotation
+    Rg (B, 3, 3): the broadphase's bound, conservative and cheap."""
+    t = model.geom_type[g]
+    size = model.geom_size[g]
+    if t == _G.SPHERE:
+        return size[0].expand(*Rg.shape[:-2], 3)
+    if t in (_G.BOX, _G.ELLIPSOID):
+        return (torch.abs(Rg) @ size.unsqueeze(-1)).squeeze(-1)
+    if t in (_G.CAPSULE, _G.CYLINDER):
+        return torch.abs(Rg[..., :, 2]) * size[1] + size[0]
+    # a hull's pairs are never in a primitive group, so never culled
+    raise NotImplementedError(f"no AABB for geom type {t}")
+
+
+def _overlap_topk(model: Model, members, Ra, pa, Rb, pb, cap: int):
+    """The broadphase: each env's `cap` most-overlapping pairs of a group,
+    (B, cap) member indices, the most overlapping first and equal scores
+    in pair order (a stable sort, as lax.top_k orders ties). A plane group
+    scores the half-space overlap along the plane's normal (no AABB bounds
+    a plane), other groups the smallest overlap of the two world AABBs.
+    The score carries no gradient: only which pairs run is decided here."""
+    ha = torch.stack([_aabb_halfext(model, ga, Ra[..., i, :, :])
+                      for i, (ga, _, _) in enumerate(members)], dim=-2)  # (B, m, 3)
+    if model.geom_type[members[0][1]] == _G.PLANE:
+        nrm = Rb[..., :, 2]  # (B, m, 3)
+        off = (nrm * pb).sum(-1)
+        score = (ha * torch.abs(nrm)).sum(-1) - ((nrm * pa).sum(-1) - off)
+    else:
+        hb = torch.stack([_aabb_halfext(model, gb, Rb[..., i, :, :])
+                          for i, (_, gb, _) in enumerate(members)], dim=-2)
+        score = torch.amin(ha + hb - torch.abs(pa - pb), dim=-1)
+    return torch.sort(score.detach(), dim=-1, descending=True, stable=True).indices[..., :cap]
+
+
+def _per_env(x, idx):
+    """x[..., idx] per env: static (n,) x indexed by (B, K) idx, or a
+    per-env (B, n) x gathered along its last axis."""
+    return x[idx] if x.dim() == 1 else torch.gather(x, -1, idx)
 
 
 def effective_contacts(model: Model) -> int:
@@ -209,15 +252,21 @@ def select_contacts(model: Model, contacts: Contacts, body_a=None, body_b=None):
         normal=torch.gather(contacts.normal, -2, idx3),
         depth=torch.gather(contacts.depth, -1, idx),
         valid=torch.gather(contacts.valid, -1, idx),
-        friction=contacts.friction[idx],
-        restitution=contacts.restitution[idx],
+        friction=_per_env(contacts.friction, idx),
+        restitution=_per_env(contacts.restitution, idx),
     )
-    return sel, body_a[idx], body_b[idx]
+    return sel, _per_env(body_a, idx), _per_env(body_b, idx)
 
 
 def contact_slots(model: Model):
     """Static per-slot metadata: (body_a, body_b) tuples of length
-    max_contacts; body_a is the body pushed along +normal."""
+    max_contacts; body_a is the body pushed along +normal. Raises
+    ValueError where the pair budget culls a group: its slots then map to
+    pairs per env (collide_world_with_bodies gives those indices)."""
+    if model.pair_budget and any(_group_cap(model, kind, members) < len(members)
+                                 for (kind, _, _, members) in _grouped_plan(model)):
+        raise ValueError("contact_slots: the slot-to-body mapping is per env under "
+                         "Model.pair_budget; use collide_world_with_bodies")
     body_a, body_b = [], []
     for (_, fn, k, members) in _grouped_plan(model):
         for (ga, gb, swapped) in members:
@@ -245,18 +294,24 @@ def geom_world_poses(model: Model, R_body, p_body):
 
 
 def collide_world_with_bodies(model: Model, R_body, p_body):
-    """Run the static pair plan's narrowphase over the batch and concatenate
-    into fixed buffers. Returns (Contacts, body_a, body_b) with per-slot
-    body index tensors (nc,). A pair stored in the other order runs with its
-    geoms in canonical order, so a slot's normal pushes body_a (the
-    canonical geom A's body) away from body_b."""
+    """Run the pair plan's narrowphase over the batch and concatenate into
+    fixed buffers. Returns (Contacts, body_a, body_b) with per-slot body
+    index tensors, (nc,), or (B, nc) where the pair budget culls a group
+    (friction and restitution then (B, nc) too). A pair stored in the other
+    order runs with its geoms in canonical order, so a slot's normal pushes
+    body_a (the canonical geom A's body) away from body_b."""
     Rg, pg = geom_world_poses(model, R_body, p_body)
     batch = R_body.shape[:-3]
     dtype, dev = R_body.dtype, R_body.device
     pos_l, n_l, d_l, v_l, fr_l, re_l, ba_l, bb_l = [], [], [], [], [], [], [], []
+    per_env = False
     for (kind, fn, k, members) in _grouped_plan(model):
         ga_i = [ga for (ga, _, _) in members]
         gb_i = [gb for (_, gb, _) in members]
+        fr = torch.minimum(model.geom_friction[ga_i], model.geom_friction[gb_i])
+        re = model.geom_restitution[ga_i] * model.geom_restitution[gb_i]
+        ba = torch.tensor([model.geom_body[g] for g in ga_i], dtype=torch.long, device=dev)
+        bb = torch.tensor([model.geom_body[g] for g in gb_i], dtype=torch.long, device=dev)
         if kind == "hull":  # one pair, its hull buffers closed over by fn
             (ga, gb, _), = members
             pos, n, depth, valid = fn(Rg[ga], pg[ga], Rg[gb], pg[gb])  # (B, k, ...)
@@ -267,27 +322,45 @@ def collide_world_with_bodies(model: Model, R_body, p_body):
             pb = torch.stack([pg[g] for g in gb_i], dim=-2)
             sa = model.geom_size[ga_i].expand(*batch, len(members), 3)
             sb = model.geom_size[gb_i].expand(*batch, len(members), 3)
+            cap = _group_cap(model, kind, members)
+            if cap < len(members):
+                idx = _overlap_topk(model, members, Ra, pa, Rb, pb, cap)  # (B, cap)
+                i3 = idx.unsqueeze(-1).expand(*idx.shape, 3)
+                i33 = i3.unsqueeze(-1).expand(*idx.shape, 3, 3)
+                Ra, Rb = torch.gather(Ra, -3, i33), torch.gather(Rb, -3, i33)
+                pa, pb = torch.gather(pa, -2, i3), torch.gather(pb, -2, i3)
+                sa, sb = torch.gather(sa, -2, i3), torch.gather(sb, -2, i3)
+                ba, bb, fr, re = ba[idx], bb[idx], fr[idx], re[idx]  # (B, cap)
+                per_env = True
             pos, n, depth, valid = fn(Ra, pa, sa, Rb, pb, sb)  # (B, m, k, ...)
         pos_l.append(pos.reshape(*batch, -1, 3))
         n_l.append(n.reshape(*batch, -1, 3))
         d_l.append(depth.reshape(*batch, -1))
         v_l.append(valid.reshape(*batch, -1))
         # friction = min of the two geoms, restitution = product
-        fr_l.append(torch.minimum(model.geom_friction[ga_i], model.geom_friction[gb_i])
-                    .repeat_interleave(k))
-        re_l.append((model.geom_restitution[ga_i] * model.geom_restitution[gb_i])
-                    .repeat_interleave(k))
-        ba_l += [model.geom_body[g] for g in ga_i for _ in range(k)]
-        bb_l += [model.geom_body[g] for g in gb_i for _ in range(k)]
+        fr_l.append(fr.repeat_interleave(k, dim=-1))
+        re_l.append(re.repeat_interleave(k, dim=-1))
+        ba_l.append(ba.repeat_interleave(k, dim=-1))
+        bb_l.append(bb.repeat_interleave(k, dim=-1))
     if not pos_l:
         z3 = torch.zeros(*batch, 0, 3, dtype=dtype, device=dev)
         z = torch.zeros(*batch, 0, dtype=dtype, device=dev)
         e = torch.zeros(0, dtype=dtype, device=dev)
         zi = torch.zeros(0, dtype=torch.long, device=dev)
         return Contacts(z3, z3, z, z.bool(), e, e), zi, zi
+
+    def cat(parts):
+        if per_env:
+            parts = [x.expand(*batch, x.shape[-1]) for x in parts]
+        return torch.cat(parts, dim=-1)
+
     contacts = Contacts(
         pos=torch.cat(pos_l, dim=-2), normal=torch.cat(n_l, dim=-2), depth=torch.cat(d_l, dim=-1),
-        valid=torch.cat(v_l, dim=-1), friction=torch.cat(fr_l), restitution=torch.cat(re_l))
-    return (contacts, torch.tensor(ba_l, dtype=torch.long, device=dev),
-            torch.tensor(bb_l, dtype=torch.long, device=dev))
+        valid=torch.cat(v_l, dim=-1), friction=cat(fr_l), restitution=cat(re_l))
+    return contacts, cat(ba_l), cat(bb_l)
 
+
+def collide_world(model: Model, R_body, p_body) -> Contacts:
+    """The contacts of collide_world_with_bodies, without the body indices
+    (contact_slots gives them for a model without a culling pair budget)."""
+    return collide_world_with_bodies(model, R_body, p_body)[0]

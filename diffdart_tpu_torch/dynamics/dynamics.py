@@ -1,5 +1,6 @@
 """Articulated-body dynamics of the vmap stack, batch-first: mass matrix,
-bias forces, implicit joint terms and geometric position integration.
+bias forces, joint forces (explicit and implicit), forward and inverse
+dynamics, the energies and geometric position integration.
 
 Counterpart of diffdart_tpu/dynamics/dynamics.py (the world-frame
 composite-rigid-body formulation: M = sum_b J_b^T I_b^w J_b, C = sum_b
@@ -15,6 +16,7 @@ from diffdart_tpu_torch.dynamics import kinematics as K
 from diffdart_tpu_torch.dynamics.joints import integrate_joint, joint_difference
 from diffdart_tpu_torch.dynamics.model import JointType, Model
 from diffdart_tpu_torch.math.spatial import force_cross, spatial_inertia, transform_inertia
+from diffdart_tpu_torch.ops.smalllinalg import spd_solve_small
 
 
 def _mask(model: Model, like):
@@ -73,6 +75,48 @@ def _neutral_like(model: Model, q):
         if model.jtype[i] in (JointType.BALL, JointType.FREE):
             qn[..., model.q_off[i]] = 1.0
     return qn
+
+
+def joint_forces(model: Model, q, v):
+    """(B, nv) explicit joint forces: viscous damping and linear springs."""
+    f = -model.damping * v
+    if model.has_springs:
+        f = f - model.spring_stiff * (q_tangent(model, q) - model.q_rest)
+    return f
+
+
+def forward_dynamics(model: Model, q, v, tau, f_ext=None, cache=None):
+    """(B, nv) unconstrained accelerations qdd = M^-1 (tau + joint forces +
+    f_ext - C); f_ext an optional extra generalised force."""
+    if cache is None:
+        cache = kinematics_cache(model, q, v)
+    M = mass_matrix(model, q, cache)
+    C = bias_forces(model, q, v, cache)
+    rhs = tau + joint_forces(model, q, v) - C
+    if f_ext is not None:
+        rhs = rhs + f_ext
+    return spd_solve_small(M, rhs)
+
+
+def inverse_dynamics(model: Model, q, v, qdd):
+    """(B, nv) tau = M qdd + C - joint forces."""
+    cache = kinematics_cache(model, q, v)
+    M = mass_matrix(model, q, cache)
+    C = bias_forces(model, q, v, cache)
+    return (M @ qdd.unsqueeze(-1)).squeeze(-1) + C - joint_forces(model, q, v)
+
+
+def kinetic_energy(model: Model, q, v):
+    """(B,) kinetic energy 1/2 sum_b V_b^T I_b^w V_b."""
+    cache = kinematics_cache(model, q, v)
+    return 0.5 * torch.einsum("xbu,xbuw,xbw->x", cache["V"], cache["I_w"], cache["V"])
+
+
+def potential_energy(model: Model, q):
+    """(B,) gravitational potential energy -sum_b m_b g . c_b."""
+    R, p = K.fk(model, q)
+    coms = K.com_positions(model, R, p)
+    return -torch.einsum("b,xbi,i->x", model.mass, coms, model.gravity)
 
 
 def implicit_joint_terms(model: Model, q, v, dt):

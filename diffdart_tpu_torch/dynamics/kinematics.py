@@ -70,3 +70,14 @@ def world_jacobian_dot_terms(model: Model, q, v, R, p, Sw, V):
 def body_velocities(model: Model, Sw, v, mask):
     """World spatial velocity of each body: (B, nbody, 6) = (mask * v) @ Sw."""
     return (mask * v.unsqueeze(-2)) @ Sw
+
+
+def com_positions(model: Model, R, p):
+    """World COM of each body: (B, nbody, 3)."""
+    return (R @ model.com.unsqueeze(-1)).squeeze(-1) + p
+
+
+def total_com(model: Model, R, p):
+    """(B, 3) world centre of mass of the whole mechanism."""
+    coms = com_positions(model, R, p)
+    return torch.einsum("b,xbi->xi", model.mass, coms) / model.mass.sum()

@@ -12,10 +12,13 @@ grad goes through FusedStepFn, whose backward is the VJP kernel (port of
 `_bwd_kernel`, in the same .cu: reverse mode on a tape that each env's
 thread records, sized once per model and dtype by a counting launch); on
 the CPU autograd runs through the plain version. The kernels cover the
-plain version's whole subset (REVOLUTE / PRISMATIC / PLANAR / WELD / FREE /
-BALL joints; capsule / sphere / box vs fixed-plane contacts; joint-limit,
-servo and joint-friction rows) within the size caps below; a CUDA call for
-a model over a cap raises NotImplementedError.
+plain version's subset (REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL
+joints; capsule / sphere / box vs fixed-plane contacts; joint-limit, servo
+and joint-friction rows) within the size caps below, but neither its
+convex-hull slots nor its hybrid LCP (kernel_unsupported_reason); a CUDA
+call for a model outside that raises NotImplementedError; rollout_tiled
+runs a model in the hybrid LCP mode through the plain version on either
+device, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ import weakref
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
-from diffdart_tpu_torch.dynamics.model import JointType, Model, State
+from diffdart_tpu_torch.dynamics.model import GeomType, JointType, Model, State
 from diffdart_tpu_torch.ops import _build
 from diffdart_tpu_torch.sim.tilestep import (
     SLOTS,
@@ -38,6 +42,7 @@ from diffdart_tpu_torch.sim.tilestep import (
     check_supported,
     contact_plan,
     dof_qidx,
+    lcp_mode,
     lcp_rows,
 )
 
@@ -80,8 +85,14 @@ def _flat(layout, fields, dtype):
 def kernel_unsupported_reason(model: Model) -> str | None:
     """Why the CUDA kernel cannot run `model` (None if it can). Models
     outside the plain version's subset raise TileStepUnsupported from
-    build_tile_step first."""
+    build_tile_step first. The two parts of the subset that the kernel
+    lacks come first: convex-hull slots and the hybrid LCP."""
     plan = contact_plan(model)
+    if any(p["gtype"] == GeomType.CONVEX for p in plan):
+        return "kernel 1 has no convex slots"
+    if lcp_mode(model) == "xla":
+        return ("the hybrid LCP runs outside the kernel (more than 64 LCP rows, or a contact "
+                "budget below the slot count)")
     if any(p["body"] < 0 for p in plan):
         return "contact pairs on a static (world) geom are not supported"
     nc = sum(SLOTS[p["gtype"]] for p in plan)
@@ -554,8 +565,42 @@ def make_bench_fns(model: Model):
 def rollout_tiled(model: Model, state: State, taus) -> State:
     """Rollout on the fused path. state: batched State with (B, nq)/(B, nv)
     fields; taus: (T, B, nv). Returns the final batched State. Gradients
-    flow wrt state and taus on both devices (model parameters are baked)."""
-    roll, _ = make_bench_fns(model)
-    qf, vf = roll(to_soa(state.q), to_soa(state.v), taus.transpose(1, 2).contiguous())
+    flow wrt state and taus on both devices (model parameters are baked).
+
+    A model in the hybrid LCP mode (lcp_mode(model) == 'xla': more than 64
+    LCP rows, or a cutting contact budget) takes the hybrid branch on either
+    device, as the JAX package's does: a loop over the plain version's step
+    (sim/tilestep.py, output='tiles'), each step checkpointed, so the
+    backward pass recomputes one step at a time. On the card that branch
+    issues one small kernel per element op; sim/fast.py::rollout_fast sends
+    such models to the vmap stack there instead. Any other model runs
+    FusedStep: the plain version on CPU tensors; on CUDA tensors the
+    kernels, or NotImplementedError naming kernel_unsupported_reason
+    (convex slots, a size cap)."""
+    soa_q, soa_v = to_soa(state.q), to_soa(state.v)
+    taus_soa = taus.transpose(1, 2).contiguous()
+    if lcp_mode(model) == "xla":
+        qf, vf = _rollout_hybrid(model, soa_q, soa_v, taus_soa)
+    else:
+        roll, _ = make_bench_fns(model)
+        qf, vf = roll(soa_q, soa_v, taus_soa)
     t = state.t + taus.shape[0] * float(model.dt) if state.t is not None else None
     return State(q=from_soa(qf), v=from_soa(vf), t=t)
+
+
+def _rollout_hybrid(model: Model, q, v, taus):
+    """The hybrid branch on SoA tensors: T checkpointed steps of the plain
+    version (in its hybrid LCP mode, which 'auto' picks for the models that
+    take this branch); (qf, vf)."""
+    tstep = build_tile_step(model, output="tiles")
+    nq = model.nq
+
+    def one(*xs):
+        qn, vn = tstep(xs[:nq], xs[nq:nq + model.nv], xs[nq + model.nv:])
+        return (*qn, *vn)
+
+    qt, vt = tuple(q), tuple(v)
+    for t in range(taus.shape[0]):
+        out = checkpoint(one, *qt, *vt, *taus[t], use_reentrant=False)
+        qt, vt = out[:nq], out[nq:]
+    return torch.stack(qt), torch.stack(vt)

@@ -112,3 +112,10 @@ def pivot_refine(lam, J, L_M, cfm, A, b, lo, hi, mu, fidx, iters=16, tol=1e-6):
     best, best_res = _pivot_from(cls1, best, best_res, J, L_M, cfm, A, b, lo, hi, mu, fidx,
                                  zero_width, budget)
     return best
+
+
+def solve_residual(lam, A, b, lo, hi, mu, fidx):
+    """(B,) natural-map residual per problem, the diagnostic of a stalled
+    solve: about 1e-6 or below, pivot-accurate; 1e-2 or above, the solve
+    (and with it the IFT gradient's active set) did not converge."""
+    return _nat_residual(lam, A, b, lo, hi, mu, fidx)

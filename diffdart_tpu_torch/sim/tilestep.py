@@ -11,18 +11,25 @@ straight-through attachment `best + (g - g.detach())` carries the
 implicit-function-theorem tangent of the final pass.
 
 Supported: REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL joints;
-capsule-plane, sphere-plane and box-plane (8-corner) contacts; joint limits
-on scalar dofs; velocity-servo and joint Coulomb friction rows; the
+capsule-plane, sphere-plane, box-plane (8-corner) and convex-hull-plane
+(the 4 deepest hull vertices, _topk_tile_slots) contacts; joint limits on
+scalar dofs; velocity-servo and joint Coulomb friction rows; the
 matrix-free boxed LCP (phased Jacobi warm start + guarded Woodbury polish).
 
-Not yet supported (raise TileStepUnsupported, naming the ROADMAP item
-that brings them, Queue 1 item 6): the hybrid lcp='xla' mode and with it
-`contact_budget`, the AABB `pair_budget` broadphase, and convex-hull
-contacts and their top-k slot selection (`_topk_tile_slots`). Such models,
-the Atlas-class humanoid among them, run on the vmap stack (sim/fast.py
-falls back with a warning). The JAX tile step has no SCREW, UNIVERSAL, EULER,
-TRANSLATIONAL or TRANSLATIONAL2D joints and no bilateral ball/weld/mimic
-rows either: such models run on the vmap stack (sim/fast.py falls back).
+The hybrid lcp='xla' mode (chosen by lcp='auto' for D > 64 rows or a
+contact budget below the slot count) keeps the element algebra up to the
+assembled rows, gathers them into batch-first dense (B, D, nv) tensors and
+solves them with ops/lcp_lowrank.py::boxed_lcp_lowrank (plain Jacobi
+sweeps, polish, pivot refinement, IFT gradient), as _xla_lcp_vnew does in
+the JAX package; a contact budget keeps each env's K deepest valid slots.
+The fused-step kernel has neither convex slots nor the hybrid LCP
+(ops/fused_step.py::kernel_unsupported_reason), so on the card such models
+run on the vmap stack (sim/fast.py falls back with the reason named).
+
+Raises TileStepUnsupported for the AABB `pair_budget` broadphase (the JAX
+tile step raises there too), for SCREW, UNIVERSAL, EULER, TRANSLATIONAL and
+TRANSLATIONAL2D joints and for bilateral ball/weld/mimic rows, which the
+JAX tile step lacks as well: such models run on the vmap stack.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ import torch
 
 from diffdart_tpu_torch.dynamics.model import GeomType, JointType, Model
 from diffdart_tpu_torch.ops import tile as T
+from diffdart_tpu_torch.ops.lcp import _jacobi
+from diffdart_tpu_torch.ops.lcp_lowrank import boxed_lcp_lowrank
+from diffdart_tpu_torch.ops.smalllinalg import cho_solve_small, cholesky_small
 
 
 class TileStepUnsupported(NotImplementedError):
@@ -61,8 +71,9 @@ def _tangent_basis_const(n):
 
 
 _SCALAR_NV = {JointType.WELD: 0, JointType.REVOLUTE: 1, JointType.PRISMATIC: 1, JointType.PLANAR: 3}
-# contact slots per geom-vs-plane pair: box 8 corners, capsule 2 ends, sphere 1
-SLOTS = {GeomType.BOX: 8, GeomType.CAPSULE: 2, GeomType.SPHERE: 1}
+# contact slots per geom-vs-plane pair: box 8 corners, capsule 2 ends, sphere 1,
+# convex hull its 4 deepest vertices (collision/collide.py's slot counts)
+SLOTS = {GeomType.BOX: 8, GeomType.CAPSULE: 2, GeomType.SPHERE: 1, GeomType.CONVEX: 4}
 
 
 def _np(x):
@@ -97,10 +108,6 @@ def contact_plan(model: Model) -> list:
             g, pl = a, b
         elif ta == GeomType.PLANE and tb in SLOTS:
             g, pl = b, a
-        elif GeomType.CONVEX in (ta, tb):
-            raise TileStepUnsupported(
-                "fused step: convex-hull contacts are not in the fused subset yet (the tile step's "
-                "convex slots, ROADMAP Queue 1 item 6)")
         else:
             raise TileStepUnsupported(f"fused step: pair types ({ta},{tb}) not supported yet")
         if model.geom_body[pl] >= 0:
@@ -116,11 +123,16 @@ def contact_plan(model: Model) -> list:
             friction=float(min(g_fric[g], g_fric[pl])),
             restitution=float(g_rest[g] * g_rest[pl]),
         ))
+        if gt[g] == GeomType.CONVEX:
+            # the hull's real (unpadded) vertices, geom-local, as constants
+            h = model.geom_hull[g]
+            plan[-1]["verts"] = _np(model.hull_verts)[h][: int(model.hull_vcounts[h])]
     return plan
 
 
-def check_supported(model: Model, lcp: str = "auto") -> None:
-    """Raise TileStepUnsupported unless `model` is in the fused subset."""
+def check_supported(model: Model, lcp: str = "auto") -> str:
+    """Raise TileStepUnsupported unless `model` is in the fused subset;
+    return the LCP mode, 'tile' or 'xla' (lcp_mode)."""
     ok_joints = {
         JointType.REVOLUTE, JointType.PRISMATIC, JointType.PLANAR,
         JointType.WELD, JointType.FREE, JointType.BALL,
@@ -133,7 +145,8 @@ def check_supported(model: Model, lcp: str = "auto") -> None:
             "fused step: bilateral/mimic rows are outside the fused subset (the vmap stack runs them)")
     if int(model.pair_budget or 0):
         raise TileStepUnsupported(
-            "fused step: the AABB pair-budget broadphase is not ported (ROADMAP Queue 1 item 6)")
+            "fused step: the AABB pair-budget broadphase has no tile form, as in the JAX "
+            "package (the vmap stack runs it)")
     qidx = dof_qidx(model)
     spring = _np(model.spring_stiff)
     for i in range(model.nv):
@@ -143,18 +156,32 @@ def check_supported(model: Model, lcp: str = "auto") -> None:
         for d in model.limited_dofs:
             if qidx[int(d)] is None:
                 raise TileStepUnsupported("fused step: joint limits on quaternion dofs not supported")
-    plan = contact_plan(model)
-    nc = sum(SLOTS[p["gtype"]] for p in plan)
+    return lcp_mode(model, lcp)
+
+
+def contact_budget(model: Model, nc: int) -> int:
+    """K of the per-env top-K slot selection: the contact budget when it is
+    below the slot count `nc`, else 0 (no selection)."""
     budget = int(model.contact_budget or 0)
-    D = lcp_rows(model, nc)
+    return budget if (budget and budget < nc) else 0
+
+
+def lcp_mode(model: Model, lcp: str = "auto") -> str:
+    """'tile' or 'xla'. 'auto' picks the hybrid 'xla' mode for more than 64
+    LCP rows (after the budget) or a cutting contact budget, as the JAX
+    package does; the budget's per-env row gather has no tile form."""
+    nc = sum(SLOTS[p["gtype"]] for p in contact_plan(model))
+    K = contact_budget(model, nc)
+    D_eff = lcp_rows(model, K or nc)
     if lcp == "auto":
-        lcp = "xla" if (D > 64 or (budget and budget < nc)) else "tile"
+        lcp = "xla" if (D_eff > 64 or K) else "tile"
     if lcp not in ("tile", "xla"):
         raise ValueError(f"build_tile_step: unknown lcp mode {lcp!r}")
-    if lcp == "xla" or (budget and budget < nc):
+    if K and lcp == "tile":
         raise TileStepUnsupported(
-            "fused step: the hybrid lcp='xla' mode (D > 64 rows or a contact "
-            "budget) is not ported (ROADMAP Queue 1 item 6)")
+            "fused step: the contact budget's top-K selection needs the hybrid lcp='xla' mode "
+            "(a per-env row gather has no tile form)")
+    return lcp
 
 
 def lcp_rows(model: Model, nc: int) -> int:
@@ -171,9 +198,10 @@ def build_tile_step(model: Model, output: str = "stacked", lcp: str = "auto"):
     (nv, B) -> (q', v') of the same shapes.
     output='tiles': step(q_tuple, v_tuple, tau_tuple) on tuples of (B,)
     tensors -> (q'_tuple, v'_tuple).
-    lcp: 'tile' or 'auto' (which picks 'tile' for D <= 64); 'xla' raises.
+    lcp: 'tile' runs the element-wise LCP (_tile_lcp); 'xla' the hybrid
+    (_xla_lcp_vnew); 'auto' picks as lcp_mode does.
     """
-    check_supported(model, lcp)
+    lcp = check_supported(model, lcp)
     nb, nv, nq = model.nbody, model.nv, model.nq
     jt = tuple(int(j) for j in model.jtype)
     parent = tuple(int(p) for p in model.parent)
@@ -214,6 +242,8 @@ def build_tile_step(model: Model, output: str = "stacked", lcp: str = "auto"):
     q_lo = _np(model.q_lo)
     q_hi = _np(model.q_hi)
     D = lcp_rows(model, nc)
+    K_budget = contact_budget(model, nc)
+    lcp_f64, pivot_iters = model.lcp_dtype == "f64", int(model.lcp_pivot_iters)
     iters = int(model.contact_iters)
     polish_passes = 2 if model.lcp_polish else 0
 
@@ -405,6 +435,16 @@ def build_tile_step(model: Model, output: str = "stacked", lcp: str = "auto"):
                             cpt = T.vadd(T.matvec3(Rg, loc), pg)
                             depth = T.neg(T.dot(T.vsub(cpt, p_pl), n_c))
                             cands.append((T.vadd(cpt, T.vscale(n_c, T.mul(0.5, depth))), depth))
+            elif pp["gtype"] == GeomType.CONVEX:
+                # every hull vertex is a candidate, the 4 deepest become
+                # slots: depth = p_pl.n - w.n, pos = the vertex itself
+                off = float(np.dot(pp["p_pl"], pp["n"]))
+                depths, poss = [], []
+                for vloc in pp["verts"]:
+                    w = T.vadd(T.matvec3(Rg, [float(x) or None for x in vloc]), pg)
+                    depths.append(T.sub(off, T.dot(w, n_c)))
+                    poss.append(w)
+                cands = [(pos, d) for d, pos in _topk_tile_slots(depths, poss, 4, zero_like)]
             else:
                 r_g = float(pp["size"][0])
                 if pp["gtype"] == GeomType.CAPSULE:
@@ -486,6 +526,11 @@ def build_tile_step(model: Model, output: str = "stacked", lcp: str = "auto"):
             valid[i_row] = True
             box_c[i_row] = float(joint_mu[dof]) * dt
 
+        if lcp == "xla":
+            v_new = _xla_lcp_vnew(J_rows, b_vec, valid, mu_row, fidx, M, v_star, nv, D, cfm, iters,
+                                  polish_passes, zero_like, K_budget, nc, con_depth, box_c,
+                                  lcp_f64, pivot_iters)
+            return q_integrate(q, v_new), v_new
         lam = _tile_lcp(J_rows, b_vec, valid, mu_row, fidx, M, Minv, nv, D, cfm, iters,
                         polish_passes, zero_like, box_c)
 
@@ -543,6 +588,110 @@ def _sparse_dot(row: dict, vec):
     for j, el in row.items():
         acc = T.fma(acc, el, vec[j])
     return acc
+
+
+def _topk_tile_slots(depths, poss, k, zero_like):
+    """Each env's k deepest candidates as fixed slots [(depth, pos)]: deepest
+    first, and on an exact tie the lower candidate index wins (the order of
+    collision/convex.py::_topk_contacts, a stable argsort of -depth). Each
+    slot is a running maximum (a later equal value never replaces it), then
+    a first-match sweep; the winner's score drops to -1e30 so the next slot
+    takes the next candidate. A hull with fewer than k vertices gets dead
+    slots (depth and position structural zeros, never valid)."""
+    n = len(depths)
+    ms = [T.materialize(d, zero_like) for d in depths]  # scores, winners masked
+    out = []
+    for _ in range(min(k, n)):
+        best = ms[0]
+        for j in range(1, n):
+            best = torch.maximum(best, ms[j])
+        found = None
+        sel_depth = None
+        sel_pos = [None, None, None]
+        for j in range(n):
+            eq = ms[j] == best  # exact: best is one of the scores
+            sel_j = eq if found is None else torch.logical_and(eq, torch.logical_not(found))
+            found = sel_j if found is None else torch.logical_or(found, sel_j)
+            sel_depth = T.where(sel_j, depths[j], sel_depth)
+            for a in range(3):
+                sel_pos[a] = T.where(sel_j, poss[j][a], sel_pos[a], like=zero_like)
+            ms[j] = torch.where(sel_j, torch.full_like(ms[j], -1e30), ms[j])
+        out.append((sel_depth, sel_pos))
+    while len(out) < k:
+        out.append((None, [None, None, None]))
+    return out
+
+
+def _xla_lcp_vnew(J_rows, b_vec, valid, mu_row, fidx, M, v_star, nv, D, cfm, iters, passes,
+                  zero_like, budget_k, nc, con_depth, box_c, lcp_f64, pivot_iters):
+    """The hybrid LCP: the element rows gathered into batch-first dense
+    tensors, J (B, D, nv), b (B, D), M (B, nv, nv), and solved by
+    ops/lcp_lowrank.py::boxed_lcp_lowrank with plain Jacobi sweeps, the
+    polish, the model's pivot refinement and the IFT gradient (float64
+    under lcp_dtype='f64'). With a contact budget K, each env keeps its K
+    deepest valid slots (a stable sort of the masked depth, as
+    lax.top_k orders ties), rows [K normals | K t1 | K t2 | the rest],
+    friction coefficients gathered with the slots and the budget's static
+    friction index. The model enters only as constants (lcp_f64: the
+    float64 island; pivot_iters), so a built step keeps no reference to it.
+    Returns v_new as a list of (B,) elements."""
+    dtype, dev = zero_like.dtype, zero_like.device
+    B = zero_like.shape[0]
+
+    def mat(x):
+        return T.materialize(x, zero_like)
+
+    J_b = torch.stack([torch.stack([mat(J_rows[i].get(j)) for j in range(nv)], -1)
+                       for i in range(D)], -2)  # (B, D, nv)
+    b_b = torch.stack([mat(x) for x in b_vec], -1)  # (B, D)
+    v_b = torch.stack([torch.full((B,), bool(x), device=dev) if isinstance(x, bool) else x
+                       for x in valid], -1)  # (B, D) bool
+    M_b = torch.stack([torch.stack([mat(M[a][c]) for c in range(nv)], -1)
+                       for a in range(nv)], -2)  # (B, nv, nv)
+    vs_b = torch.stack([mat(x) for x in v_star], -1)  # (B, nv)
+
+    lo_row = torch.zeros(D, dtype=dtype, device=dev)
+    hi_row = torch.full((D,), float("inf"), dtype=dtype, device=dev)
+    for i, c in enumerate(box_c):
+        if c is not None:
+            lo_row[i], hi_row[i] = -c, c
+    if budget_k:
+        K = budget_k
+        nrest = D - 3 * nc  # limit, servo and joint-friction rows
+        depth_b = torch.stack([mat(d) for d in con_depth], -1)  # (B, nc)
+        score = torch.where(v_b[:, :nc], depth_b, torch.full_like(depth_b, -float("inf")))
+        idx = torch.sort(score.detach(), dim=-1, descending=True, stable=True).indices[:, :K]
+        rest = torch.arange(3 * nc, D, device=dev).expand(B, nrest)
+        rows = torch.cat([idx, idx + nc, idx + 2 * nc, rest], dim=1)  # (B, D_eff)
+        J_b = torch.gather(J_b, 1, rows.unsqueeze(-1).expand(*rows.shape, nv))
+        b_b = torch.gather(b_b, 1, rows)
+        v_b = torch.gather(v_b, 1, rows)
+        lo_g, hi_g = lo_row[rows], hi_row[rows]
+        mu_sel = torch.tensor(mu_row[nc:2 * nc], dtype=dtype, device=dev)[idx]  # (B, K)
+        zero_k = torch.zeros_like(mu_sel)
+        mu_full = torch.cat([zero_k, mu_sel, mu_sel, zero_k.new_zeros(B, nrest)], dim=1)
+        fidx_np = np.full(3 * K + nrest, -1, np.int64)
+        fidx_np[K:2 * K] = np.arange(K)
+        fidx_np[2 * K:3 * K] = np.arange(K)
+        fidx_t = torch.tensor(fidx_np, device=dev)
+        mu_b = torch.where(v_b, mu_full, 0.0)
+    else:
+        fidx_t = torch.tensor(fidx, dtype=torch.long, device=dev)
+        mu_c = torch.tensor(mu_row, dtype=dtype, device=dev)
+        mu_b = torch.where(v_b, mu_c.expand(B, D), 0.0)
+        lo_g, hi_g = lo_row.expand(B, D), hi_row.expand(B, D)
+    lo_b = torch.where(v_b, lo_g, 0.0)
+    hi_b = torch.where(v_b, hi_g, 0.0)
+    cfm_a = torch.tensor(cfm, dtype=dtype, device=dev)
+    if lcp_f64 and dtype != torch.float64:
+        f64 = torch.float64
+        J_b, M_b, b_b, lo_b, hi_b, mu_b, cfm_a = (
+            x.to(f64) for x in (J_b, M_b, b_b, lo_b, hi_b, mu_b, cfm_a))
+    lam = boxed_lcp_lowrank(J_b, M_b, cfm_a, b_b, lo_b, hi_b, mu_b, fidx_t, iters, passes,
+                            _jacobi, pivot_iters)
+    dv = cho_solve_small(cholesky_small(M_b), (J_b.transpose(-1, -2) @ lam.unsqueeze(-1)))
+    v_new = vs_b + dv.squeeze(-1).to(dtype)
+    return [v_new[:, i] for i in range(nv)]
 
 
 def _sparse_dot_mat(Mat, k, row: dict):

@@ -113,11 +113,12 @@ def test_tangent_basis_matches_jax():
 
 
 def test_unported_pairs_and_budgets_raise():
-    """The pair_budget broadphase still raises (Queue 1 item 6). The
-    cylinder-plane pair and a contact budget below the slot count raised
-    here until they were ported; on the same inputs they now run: the
-    cylinder's 8 rim slots equal the JAX package's, and a budget of 1 keeps
-    one slot."""
+    """The cylinder-plane pair, a contact budget below the slot count and
+    the pair_budget broadphase raised here until they were ported; on the
+    same inputs they now run: the cylinder's 8 rim slots equal the JAX
+    package's, a budget of 1 keeps one slot, and a pair budget of 1 keeps
+    one of the worm's two capsule-plane pairs per env, its contacts equal
+    to the JAX package's."""
     b = ModelBuilder(dt=1e-3)
     b.add_geom(-1, GeomType.PLANE)
     body = b.add_body(parent=-1, jtype=JointType.FREE)
@@ -136,8 +137,19 @@ def test_unported_pairs_and_budgets_raise():
     np.testing.assert_array_equal(got.valid[0].numpy(), np.asarray(want.valid))
     assert got.valid.any()
     worm = batch("worm")[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        C.max_contacts(worm.replace(pair_budget=1))
+    from diffdart_tpu.collision.collide import max_contacts as jax_max_contacts
+
+    pb = worm.replace(pair_budget=1)
+    assert C.max_contacts(pb) == jax_max_contacts(_jax_model(pb)) < C.max_contacts(worm)
+    wq, wv = batch("worm")[2:4]
+    wc = D.kinematics_cache(pb, T(wq), T(wv))
+    got_pb, ga_pb, _ = C.collide_world_with_bodies(pb, wc["R"], wc["p"])
+    jpb = _jax_model(pb)
+    for i in range(len(wq)):
+        jc_i = JD.kinematics_cache(jpb, jnp.asarray(wq[i]), jnp.asarray(wv[i]))
+        want_i, wa_i, _ = jax_collide(jpb, jc_i["R"], jc_i["p"])
+        close(got_pb.depth[i], want_i.depth, atol=1e-12, msg="pair-budget depth")
+        np.testing.assert_array_equal(ga_pb[i].numpy(), np.asarray(wa_i))
     assert C.effective_contacts(worm.replace(contact_budget=1)) == 1
     cache = D.kinematics_cache(worm, T(batch("worm")[2]), T(batch("worm")[3]))
     one = C.select_contacts(worm.replace(contact_budget=1),

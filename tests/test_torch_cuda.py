@@ -299,6 +299,44 @@ def test_rollout_fast_over_the_kernel_caps_falls_back():
 
 
 @pytest.mark.cuda
+def test_rollout_tiled_raises_where_the_kernel_cannot_run():
+    """On the card rollout_tiled runs the kernels, or the hybrid branch for
+    a model in the hybrid LCP mode, as the JAX package does; for a model
+    over a cap (the 17-body chain) or with convex slots (an octahedron
+    hull) it raises NotImplementedError with the reason and launches
+    nothing. The budgeted worm (hybrid mode) runs, with no fused launch."""
+    _cuda()
+    b = ModelBuilder(dt=1e-3)
+    prev = -1
+    for _ in range(fs.MAX_NB + 1):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.1))
+    chain = b.finalize(dtype=torch.float32, device="cuda")
+    b = ModelBuilder(dt=2e-3)
+    body = b.add_body(parent=-1, jtype=JointType.FREE, mass=1.0, inertia=np.eye(3) * 0.004)
+    verts = 0.1 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1.0]])
+    b.add_geom(body, GeomType.CONVEX, verts=verts, friction=0.6)
+    b.add_geom(-1, GeomType.PLANE, friction=0.6)
+    octa = b.finalize(dtype=torch.float32, device="cuda")
+    B = 64
+    n0 = fs.KERNEL.launches
+    for m, match in ((chain, "bodies = 17 exceeds the kernel's cap of 16"),
+                     (octa, "kernel 1 has no convex slots")):
+        q = m.neutral_q().repeat(B, 1)
+        q[:, -1] += 0.1 if m is octa else 0.0
+        state = State(q=q, v=torch.zeros(B, m.nv, device="cuda"))
+        with pytest.raises(NotImplementedError, match=match):
+            fs.rollout_tiled(m, state, torch.zeros(2, B, m.nv, device="cuda"))
+    worm, wq0 = _worm(torch.float32, "cuda")
+    worm = worm.replace(contact_budget=3)
+    assert fs.lcp_mode(worm) == "xla"
+    q0 = worm.neutral_q() + torch.tensor(wq0, dtype=torch.float32, device="cuda")
+    state = State(q=q0.repeat(B, 1), v=torch.zeros(B, worm.nv, device="cuda"))
+    out = fs.rollout_tiled(worm, state, 0.1 * torch.randn(2, B, worm.nv, device="cuda"))
+    assert fs.KERNEL.launches == n0
+    assert torch.isfinite(out.q).all() and torch.isfinite(out.v).all()
+
+
+@pytest.mark.cuda
 def test_bptt_launch_count():
     """rollout_fast with taus that require grad, B = 1000, T = 3, then
     backward: 3 launches of each kernel, a finite non-zero gradient."""
@@ -649,5 +687,5 @@ def test_humanoid_rollout_through_the_kernel():
     assert P.KERNEL_SINGLE.launches == n0 + T
     assert torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all()
     assert (fin.q[:, 6] > 0.2).all()
-    with pytest.warns(UserWarning, match="outside the fused subset"), torch.no_grad():
+    with pytest.warns(UserWarning, match="kernel 1 has no convex slots"), torch.no_grad():
         rollout_fast(m, state, taus[:2])

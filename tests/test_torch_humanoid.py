@@ -172,13 +172,58 @@ def test_budget_keeps_the_deepest_slots():
     assert lcp.b.shape == (B, 84)
 
 
-def test_rollout_fast_warns_and_runs_the_vmap_stack():
+@pytest.fixture(scope="module")
+def vmap_rollout():
+    """3 steps of the vmap stack from the perturbed state (B = 2, budget
+    12): (model, q, v, taus, final State)."""
+    from diffdart_tpu_torch.sim.step import rollout_final
+
     m = _model(12)
     q, v = perturbed_state(m, B=2)
-    with pytest.warns(UserWarning, match="outside the fused subset"):
-        fin = rollout_fast(m, State(q=T(q), v=T(v)), torch.zeros(3, 2, m.nv, dtype=torch.float64))
+    taus = torch.zeros(3, 2, m.nv, dtype=torch.float64)
+    with torch.no_grad():
+        fin = rollout_final(m, State(q=T(q), v=T(v)), taus)
+    return m, q, v, taus, fin
+
+
+def test_rollout_fast_warns_and_runs_the_vmap_stack(vmap_rollout):
+    """With the mass requiring grad, rollout_fast warns and runs the vmap
+    stack, which gives the mass its gradient: 3 steps, the final state
+    equal to the vmap stack's rollout. On the card the humanoid also
+    warns without grad, naming kernel 1's missing convex slots."""
+    from diffdart_tpu_torch.sim import fast
+
+    m, q, v, taus, ref = vmap_rollout
+    assert "kernel 1 has no convex slots" in fast._fallback_reason(m, torch.device("cuda"))
+    mass = m.mass.clone().requires_grad_(True)
+    with pytest.warns(UserWarning, match="require grad"):
+        fin = rollout_fast(m.replace(mass=mass), State(q=T(q), v=T(v)), taus)
     assert bool(torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all())
     assert bool((fin.q[:, 6] > 0.9).all())
+    close(fin.q.detach(), ref.q.numpy(), atol=1e-12)
+    close(fin.v.detach(), ref.v.numpy(), atol=1e-12)
+    (g,) = torch.autograd.grad(fin.q[:, 6].sum(), mass)
+    assert bool(torch.isfinite(g).all())
+
+
+def test_rollout_fast_routes_the_humanoid(vmap_rollout):
+    """The plain fused step has convex slots and the hybrid LCP, so the
+    humanoid is inside the fused subset: on the CPU rollout_fast takes
+    rollout_tiled's hybrid branch without a warning, and its final state
+    after 3 steps equals the vmap stack's (q 1e-7, v 1e-5)."""
+    import warnings
+
+    from diffdart_tpu_torch.sim import fast
+
+    m, q, v, taus, ref = vmap_rollout
+    assert fast._fallback_reason(m, torch.device("cpu")) is None
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        fin = rollout_fast(m, State(q=T(q), v=T(v)), taus)
+    assert bool(torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all())
+    assert bool((fin.q[:, 6] > 0.9).all())
+    close(fin.q, ref.q.numpy(), atol=1e-7)
+    close(fin.v, ref.v.numpy(), atol=1e-5)
 
 
 def test_timestep_jacobians_backprop_and_central_differences():

@@ -144,9 +144,15 @@ def test_unsupported_models_raise():
     b.add_geom(body, GeomType.SPHERE, size=(0.1, 0, 0))
     with pytest.raises(TileStepUnsupported):
         build_tile_step(b.finalize(dtype=torch.float64, device="cpu"))
-    _, tm = _worm_pair()
-    for bad in (dict(contact_budget=2), dict(pair_budget=3)):
-        with pytest.raises(TileStepUnsupported):
-            build_tile_step(tm.replace(**bad))
-    with pytest.raises(TileStepUnsupported):
-        build_tile_step(tm, lcp="xla")
+    jm, tm = _worm_pair()
+    with pytest.raises(TileStepUnsupported, match="pair-budget"):
+        build_tile_step(tm.replace(pair_budget=3))  # the JAX tile step raises too
+    # contact_budget=2 and lcp="xla" raised here until the hybrid LCP was
+    # ported; they now run, and match the JAX package's hybrid step (eager,
+    # pivot off on both sides; the two solve the LCP in other orders)
+    q, v, tau = _worm_batch(tm.nq, tm.nv, seed=0)
+    tm0 = tm.replace(lcp_pivot_iters=0)
+    for kw, lcp in ((dict(contact_budget=2), "auto"), (dict(), "xla")):
+        _check_resynced(jax_build_tile_step(jm.replace(**kw), output="tiles", lcp=lcp),
+                        build_tile_step(tm0.replace(**kw), output="tiles", lcp=lcp),
+                        q, v, tau, steps=2, v_atol=1e-6)
