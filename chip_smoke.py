@@ -198,21 +198,21 @@ pelvis and torso, nv = 30, 33 contact slots) and the catapult:
                  100 float32 steps through the kernel (100 launches), finite.
 Convex and hybrid models, the pair budget, the dynamics API and trajectory
 optimization (each model outside the fused kernel reaches the vmap stack
-only through rollout_fast's warning, which names the reason). At each new
+through rollout_fast's warning, which names the reason, or directly
+through sim/step.py). At each new
 model's states the sweep kernel is held against _jacobi on the LCPs that
 prepare_constrained assembles, in the solve's dtype, within
 ops/sweep_check.py's limits ("[sweeps]" lines: the octahedron and the
 sphere field at their timed B in float32, the budgeted worm, the
 catapult's and the jump-worm's float64 islands):
  25. convex-hybrid -- tests/test_tilestep_hybrid.py's octahedron hull on a
-                 plane, rollout_fast, B = 4096, T = 10, float32,
-                 'lowrank_pallas': the warning names kernel 1's missing
-                 convex slots, T sweep launches, no fused-step launch,
-                 timed (median of 3); one step_batched call (one batched
-                 launch); float64, 16 envs, 10 re-synced steps: the card's
-                 vmap step against the CPU's plain fused step (its convex
-                 slots) within q 1e-7, v 1e-5; rollout_tiled on the card
-                 refuses the octahedron, naming the convex slots. The 2-link
+                 plane on the vmap stack (sim/step.py::rollout; the
+                 fused path takes it in phase 29), B = 4096, T = 10,
+                 float32, 'lowrank_pallas': T sweep launches, no fused-step
+                 launch, timed (median of 3); one step_batched call (one
+                 batched launch); float64, 16 envs, 10 re-synced steps: the
+                 card's vmap step against the CPU's plain fused step (its
+                 convex slots) within q 1e-7, v 1e-5. The 2-link
                  worm with contact_budget=3 (the hybrid LCP mode):
                  rollout_tiled's hybrid branch on the card, B = 256, T = 5,
                  float64, no fused-step launch, against the same on the CPU
@@ -242,11 +242,52 @@ catapult's and the jump-worm's float64 islands):
                  per iteration and the share in the batched linearization;
                  one MPC solve of examples/mpc_cartpole.py's configuration,
                  timed.
+Slice 10: convex slots on the fused kernels, and the loaders, the World,
+IK, recordings and the native pivot oracle:
+ 29. convex-fused -- the octahedron (4 hull slots, D = 12) on kernels 1 and
+                 2, B = 4096: float64, 20 steps of kernel 1 against the plain
+                 version, re-synced, q 1e-8, v 1e-7; float32, one step,
+                 >= 99% of envs within q 1e-4, v 5e-2; rollout_fast, T = 10,
+                 float32: T launches of kernel 1, no sweep launch and no
+                 warning, timed (median of 5) beside phase 25's vmap
+                 rollout of the same model; its BPTT: T step and T VJP
+                 launches; rollout_tiled on the card refuses two models over
+                 a cap (the 17-body chain; three 32-vertex hulls, 96 over the
+                 vertex pool's 64) with NotImplementedError naming the cap,
+                 and launches nothing; the VJP in float64 against autograd
+                 through the plain version at ops/vjp_check.py's limits, its
+                 primal equal to kernel 1's output bit for bit; each
+                 kernel's device ms per launch beside its bound
+                 (ops_per_env_step / ops_per_env_vjp of the octahedron) and
+                 the plain version's ms; tape nodes per env.
+ 30. loaders-world -- the port's scene files (diffdart_tpu_torch/assets/
+                 scenes: SKEL, SDF, VSK, URDF) through io.load_into_builder
+                 into a World on the card, float64, 50 steps from seeded
+                 velocities, equal to the same World on the CPU within
+                 1e-10; the three stored goldens (tests/goldens) with
+                 B = 256 copies of each start on the card, every env held
+                 to the golden at tests/test_goldens.py's tolerances (where
+                 the card leaves cube_drop's chaotic bounce, the step and
+                 the size are printed and one step from the CPU port's state
+                 there is held to the CPU within 1e-9); solve_ik and
+                 HierarchicalIK, B = 64, float64, card vs CPU (solve_ik
+                 1e-8; HierarchicalIK, chaotic in a few envs, one iteration
+                 within 1e-10 on every env, and after 80 iterations q and
+                 both levels' errors within 1e-10 on the envs that a second
+                 CPU solve from a start moved by 1e-15 marks stable, >= 85%
+                 of them); the native Dantzig pivot solver built with g++ on
+                 the machine, the exact oracle of the 'lowrank_pallas'
+                 solves (one sweep launch) at 256 cube_drop contact states:
+                 the pivot solve exact (status 0) on >= 90% of them, and on
+                 every such env the velocity impulse M^-1 J^T lam within
+                 1e-6 of the pivot solution's.
 Then one JSON line with the kernels' numbers (jacobi_sweeps_single also
 under "humanoid": its launches in phases 23-24 and its readings at each
 humanoid D beside their bounds, and under "slice9" its launches in phases
-25-28 and the max_abs_err of each "[sweeps]" comparison; jacobi_sweeps its
-step_batched launches of phases 22, 25 and 26),
+25-28 and the max_abs_err of each "[sweeps]" comparison, and its launch in
+phase 30's oracle check; jacobi_sweeps its step_batched launches of phases
+22, 25 and 26; fused_step and fused_step_vjp the octahedron's numbers of
+phase 29 under "convex"),
 the card line, and the result line {"ok": true, "device": {...}}.
 """
 import json
@@ -743,7 +784,7 @@ def humanoid_phases(card, lib_sw, reset_counts):
     torch.cuda.synchronize()
     out["launches_jacobians"] = P.KERNEL_SINGLE.launches
     fin_j = torch.stack([torch.isfinite(x).flatten(1).all(1) for x in jac]).all(0).double().mean().item()
-    jt = median_ms(lambda: timestep_jacobians(mp, st_f, tau0), warm=False)
+    jt = median_ms(lambda: timestep_jacobians(mp, st_f, tau0), runs=5, warm=False)
     out["jacobian_sets_per_s"] = Bf / (jt[0] * 1e-3)
     print(f"[humanoid-reference] timestep_jacobians B={Bf} f32 lowrank_pallas, standing, every slot: "
           f"7 blocks, finite on {100 * fin_j:.2f}% of envs; {out['launches_jacobians']} sweep launch(es) "
@@ -780,6 +821,32 @@ def octa_model(dtype, device):
     b.add_geom(body, GeomType.CONVEX, verts=verts, friction=0.6)
     b.add_geom(-1, GeomType.PLANE, friction=0.6)
     return b.finalize(dtype=dtype, device=device).replace(lcp_pivot_iters=0)
+
+
+def over_cap_models():
+    """Two float32 models on the card, each over one of kernel 1's caps, with
+    the reason kernel_unsupported_reason gives: the 17-body chain of
+    tests/test_torch_cuda.py and the three 32-vertex hulls of
+    tests/test_torch_fused_convex.py."""
+    from diffdart_tpu_torch.dynamics.model import GeomType, JointType, ModelBuilder
+    from diffdart_tpu_torch.ops import fused_step as fs
+
+    b = ModelBuilder(dt=1e-3)
+    prev = -1
+    for _ in range(fs.MAX_NB + 1):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.1))
+    chain = b.finalize(dtype=torch.float32, device="cuda")
+    rng = np.random.RandomState(8)
+    b = ModelBuilder(dt=2e-3)
+    body = b.add_body(parent=-1, jtype=JointType.FREE, mass=1.0, inertia=np.eye(3) * 0.004)
+    for k in range(3):
+        pts = rng.randn(200, 3)
+        b.add_geom(body, GeomType.CONVEX, verts=0.1 * pts / np.linalg.norm(pts, axis=1, keepdims=True),
+                   pos=(0.1 * k, 0, 0))
+    b.add_geom(-1, GeomType.PLANE)
+    hulls = b.finalize(dtype=torch.float32, device="cuda")
+    return [(chain, f"bodies = {fs.MAX_NB + 1} exceeds the kernel's cap of {fs.MAX_NB}"),
+            (hulls, f"hull vertices = 96 exceeds the kernel's cap of {fs.MAX_HULL_VERTS}")]
 
 
 def octa_state(B_, seed, dtype, device):
@@ -879,24 +946,30 @@ def slice9_phases(card, reset_counts):
         return fin, [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
 
     # ---- 25. convex-hybrid: convex slots and the hybrid LCP ----
+    # the octahedron on the vmap stack: rollout_fast takes kernel 1 for it
+    # now (phase 29), so the vmap stack's rollout is called directly
     mo = octa_model(f32, "cuda").replace(contact_solver="lowrank_pallas")
     Bo, To = 4096, 10
     st_o = octa_state(Bo, 1, f32, "cuda")
     taus_o = torch.tensor(0.1 * np.random.RandomState(2).randn(To, Bo, 6), dtype=f32, device="cuda")
+
+    def vmap_octa():
+        with torch.no_grad():
+            return S.rollout(mo, st_o, taus_o)[0]
+
     reset_counts()
-    fin_o, msgs = warned_fallback(mo, st_o, taus_o)
+    fin_o = vmap_octa()
     torch.cuda.synchronize()
     out["launches_convex_rollout"] = P.KERNEL_SINGLE.launches
     fused_o = fs.KERNEL.launches
     finite_o = bool(torch.isfinite(fin_o.q).all() and torch.isfinite(fin_o.v).all())
-    roll_o = median_ms(lambda: warned_fallback(mo, st_o, taus_o), runs=3)
-    print(f"[convex-hybrid] octahedron hull on a plane, rollout_fast B={Bo} T={To} f32 lowrank_pallas: "
-          f"warning {msgs[:1]}; {out['launches_convex_rollout']} jacobi_sweeps_single launches, {fused_o} "
-          f"fused-step launches; finite {finite_o}; timing on {card}: median {roll_o[0]:.2f} ms (min "
-          f"{roll_o[1]:.2f}, max {roll_o[2]:.2f}, 3 runs) = {Bo * To / (roll_o[0] * 1e-3):.6g} "
-          f"fwd env-steps/s")
-    check(len(msgs) == 1 and "kernel 1 has no convex slots" in msgs[0],
-          "rollout_fast did not name the convex reason")
+    roll_o = median_ms(vmap_octa, runs=3)
+    out["convex_vmap_ms"] = roll_o[0]
+    print(f"[convex-hybrid] octahedron hull on a plane, the vmap stack (sim/step.py::rollout) "
+          f"B={Bo} T={To} f32 lowrank_pallas: {out['launches_convex_rollout']} jacobi_sweeps_single "
+          f"launches, {fused_o} fused-step launches; finite {finite_o}; timing on {card}: median "
+          f"{roll_o[0]:.2f} ms (min {roll_o[1]:.2f}, max {roll_o[2]:.2f}, 3 runs) = "
+          f"{Bo * To / (roll_o[0] * 1e-3):.6g} fwd env-steps/s")
     check(out["launches_convex_rollout"] == To and fused_o == 0, "the convex model missed the vmap stack")
     check(finite_o, "non-finite convex rollout")
     reset_counts()
@@ -906,15 +979,6 @@ def slice9_phases(card, reset_counts):
     out["launches_convex_step_batched"] = P.KERNEL.launches
     check(out["launches_convex_step_batched"] == 1, "expected one batched sweep launch")
     sweeps_vs_plain("octahedron", mo, st_o, taus_o[0])
-    # rollout_tiled on the card: the convex model is not in the hybrid LCP
-    # mode, so it is refused with the reason, as a model over a cap is
-    try:
-        fs.rollout_tiled(mo, st_o, taus_o)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    print(f"[convex-hybrid] rollout_tiled on the card refuses the octahedron: {refused!r}")
-    check("kernel 1 has no convex slots" in refused, "rollout_tiled did not refuse the convex model")
 
     # float64: the card's vmap step against the CPU's plain fused step (the
     # tile twin with its convex slots), 16 envs, 10 re-synced steps
@@ -1180,6 +1244,385 @@ def slice9_phases(card, reset_counts):
           f"f32): cost {res_m.cost_trace[0].item():.4f} -> {res_m.cost.item():.4f}, {mpc_ms:.0f} ms on {card}")
     check(bool(res_m.cost <= res_m.cost_trace[0]) and bool(torch.isfinite(res_m.us).all()),
           "bad MPC solve")
+    return out
+
+
+def convex_fused_phase(card, lib, reset_counts, vmap_ms):
+    """Phase 29: the octahedron (a convex hull of 6 vertices, 4 slots,
+    D = 12) on kernels 1 and 2. Returns its numbers for the kernel line."""
+    import warnings
+
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.ops import vjp_check as vc
+    from diffdart_tpu_torch.sim.fast import rollout_fast
+
+    f32, f64 = torch.float32, torch.float64
+    Bo, To = 4096, 10
+    m64, m32 = octa_model(f64, "cuda"), octa_model(f32, "cuda")
+    check(fs.kernel_unsupported_reason(m32) is None, "the kernel refuses the octahedron")
+    step64, step32 = fs.build_fused_step(m64), fs.build_fused_step(m32)
+    D = step32.D
+    st = octa_state(Bo, 11, f64, "cpu")
+    rng = np.random.RandomState(12)
+    q_np, v_np, tau_np = st.q.numpy(), st.v.numpy(), 0.1 * rng.randn(Bo, 6)
+
+    def soa(x, dtype):
+        return torch.tensor(np.ascontiguousarray(x.T), dtype=dtype, device="cuda")
+
+    # float64: 20 steps of kernel 1 against the plain version, re-synced
+    q, v, tau = (soa(x, f64) for x in (q_np, v_np, tau_np))
+    eq = ev = 0.0
+    touching = 0
+    with torch.no_grad():
+        for _ in range(20):
+            qk, vk = step64(q, v, tau)
+            qp, vp = step64.plain(q, v, tau)
+            eq = max(eq, (qk - qp).abs().max().item())
+            ev = max(ev, (vk - vp).abs().max().item())
+            touching += int((q[6] < 0.1).sum())
+            q, v = qp, vp
+    print(f"[convex-fused] octahedron (D = {D}, 4 slots), f64, 20 re-synced steps at B={Bo}: max |dq| "
+          f"{eq:.3e} (tol 1e-8), max |dv| {ev:.3e} (tol 1e-7); {touching} env-steps with the centre "
+          f"below 0.1 m (a vertex under the plane)")
+    check(eq <= 1e-8 and ev <= 1e-7, "float64 convex kernel disagrees with the plain version")
+    check(touching > 0, "no convex contact in the float64 check")
+    # float32: one step
+    q, v, tau = (soa(x, f32) for x in (q_np, v_np, tau_np))
+    with torch.no_grad():
+        qk, vk = step32(q, v, tau)
+        qp, vp = step32.plain(q, v, tau)
+    torch.cuda.synchronize()
+    dq, dv = (qk - qp).abs().amax(0), (vk - vp).abs().amax(0)
+    within = ((dq <= 1e-4) & (dv <= 5e-2)).float().mean().item()
+    f32_err = max(dq.max().item(), dv.max().item())
+    print(f"[convex-fused] f32, one step at B={Bo}: |dq| max {dq.max().item():.3e}, |dv| max "
+          f"{dv.max().item():.3e}; {100 * within:.2f}% of envs within q 1e-4, v 5e-2")
+    check(bool(torch.isfinite(qk).all() and torch.isfinite(vk).all()), "non-finite float32 convex step")
+    check(within >= 0.99, "float32 convex kernel disagrees with the plain version on > 1% of envs")
+
+    # the main path: rollout_fast, T launches of kernel 1 and no warning
+    st32 = State(q=torch.tensor(q_np, dtype=f32, device="cuda"), v=torch.tensor(v_np, dtype=f32, device="cuda"))
+    taus = torch.tensor(0.1 * rng.randn(To, Bo, 6), dtype=f32, device="cuda")
+
+    def roll():
+        with torch.no_grad():
+            return rollout_fast(m32, st32, taus)
+
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fin = roll()
+        torch.cuda.synchronize()
+    launches = fs.KERNEL.launches
+    msgs = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    sweeps = P.KERNEL_SINGLE.launches
+    finite = bool(torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all())
+    roll_ms = median_ms(roll, runs=5)
+    print(f"[convex-fused] rollout_fast B={Bo} T={To} f32: {launches} fused-step launches, {sweeps} "
+          f"sweep launches, warnings {msgs}; finite {finite}; timing on {card}: median "
+          f"{roll_ms[0]:.3f} ms (min {roll_ms[1]:.3f}, max {roll_ms[2]:.3f}, 5 runs) = "
+          f"{Bo * To / (roll_ms[0] * 1e-3):.6g} fwd env-steps/s; the vmap stack's rollout of the same "
+          f"model and size (phase 25) {vmap_ms:.2f} ms, {vmap_ms / roll_ms[0]:.1f}x it")
+    check(launches == To and sweeps == 0, f"expected {To} fused-step launches for the octahedron")
+    check(not msgs, "rollout_fast warned for the octahedron")
+    check(finite, "non-finite convex rollout")
+
+    # rollout_tiled (which rollout_fast ran above) on the card: a model over
+    # a cap (the 17-body chain; three 32-vertex hulls, 96 in the pool) is
+    # refused with the reason that names the cap, and launches nothing
+    for over, want in over_cap_models():
+        reset_counts()
+        st_o = State(q=over.neutral_q().repeat(64, 1), v=torch.zeros(64, over.nv, device="cuda"))
+        try:
+            fs.rollout_tiled(over, st_o, torch.zeros(2, 64, over.nv, device="cuda"))
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        torch.cuda.synchronize()
+        print(f"[convex-fused] rollout_tiled on the card refuses a model over a cap: {refused!r}; "
+              f"{fs.KERNEL.launches} fused-step launches")
+        check(want in refused, f"rollout_tiled did not refuse the model with {want!r}")
+        check(fs.KERNEL.launches == 0, "rollout_tiled launched kernel 1 for a model over a cap")
+
+    # BPTT through it: T VJP launches
+    def bptt():
+        tg = taus.clone().requires_grad_(True)
+        f = rollout_fast(m32, st32, tg)
+        ((f.q[:, 6] ** 2).mean() + 1e-4 * (tg**2).mean()).backward()
+        return tg.grad
+
+    reset_counts()
+    dtaus = bptt()
+    torch.cuda.synchronize()
+    launches_fwd, launches_vjp = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    nonzero = ((dtaus - 2e-4 * taus / taus.numel()).abs() > 0).any(-1).any(0).double().mean().item()
+    bptt_ms = median_ms(bptt, runs=5)
+    print(f"[convex-fused] BPTT (loss mean(z_T^2) + 1e-4 mean(tau^2)) B={Bo} T={To} f32: "
+          f"{launches_fwd} step and {launches_vjp} VJP launches; dtau finite "
+          f"{bool(torch.isfinite(dtaus).all())}, non-zero through the kernels on {100 * nonzero:.2f}% "
+          f"of envs; median {bptt_ms[0]:.3f} ms (min {bptt_ms[1]:.3f}, max {bptt_ms[2]:.3f}, 5 runs) = "
+          f"{Bo * To / (bptt_ms[0] * 1e-3):.6g} fwd+grad env-steps/s")
+    check(launches_fwd == To and launches_vjp == To,
+          f"expected {To} step and {To} VJP launches, got {launches_fwd}, {launches_vjp}")
+    check(bool(torch.isfinite(dtaus).all()), "non-finite convex BPTT gradient")
+
+    # the VJP in float64 against autograd through the plain version
+    gq_np, gv_np = rng.randn(Bo, 7), rng.randn(Bo, 6)
+    q, v, tau, gq, gv = (soa(x, f64) for x in (q_np, v_np, tau_np, gq_np, gv_np))
+    d64 = fs.VJP_KERNEL(*step64.descriptor(q.device, f64), q, v, tau, gq, gv,
+                        step64.tape_capacity(q, v, tau), primal=True)
+    with torch.no_grad():
+        qk, vk = step64(q, v, tau)
+    xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+    want = torch.autograd.grad(step64.plain(*xs), xs, (gq, gv))
+    torch.cuda.synchronize()
+    share = vc.envs_within(d64[:3], want)
+    primal_eq = bool(torch.equal(d64[3], qk) and torch.equal(d64[4], vk))
+    vjp_err = max((a - b).abs().max().item() for a, b in zip(d64[:3], want))
+    print(f"[convex-fused] VJP f64, one step at B={Bo}: {100 * share:.2f}% of envs within rtol 1e-6 + "
+          f"atol 1e-8 max|g|, max |d| {vjp_err:.3e}; the tape's primal == kernel 1's output on all "
+          f"{Bo} envs: {primal_eq}")
+    check(share >= vc.VJP_SHARE, "float64 convex VJP disagrees with plain autograd on > 1% of envs")
+    check(primal_eq, "the convex VJP's primal differs from kernel 1's output")
+
+    # device times beside the bounds, float32
+    q, v, tau = (soa(x, f32) for x in (q_np, v_np, tau_np))
+    desc = step32.descriptor(q.device, f32)
+    nodes = fs.VJP_KERNEL.tape_nodes(*desc, q, v, tau)
+    cap = step32.tape_capacity(q, v, tau)
+    kernel_ms, issue_ms, _ = step_device_ms(lib, desc, D, q, v, tau)
+    ones_q, ones_v = torch.ones_like(q), torch.ones_like(v)
+    vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc, q, v, tau, ones_q, ones_v, cap)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: step32.plain(q, v, tau), reps=3)
+
+    def plain_vjp():
+        xs = [x.clone().requires_grad_(True) for x in (q, v, tau)]
+        torch.autograd.grad(step32.plain(*xs), xs, (ones_q, ones_v))
+
+    plain_vjp_ms = cuda_ms(plain_vjp, reps=1)
+    m_cpu = octa_model(f32, "cpu")
+    one = [x[:, :1].cpu() for x in (q, v, tau)]
+    ops, ops_v = ops_per_env_step(m_cpu, *one), ops_per_env_vjp(m_cpu, *one)
+    di, df = fs.pack_descriptor(m32)
+    nbytes = (2 * m32.nq + 3 * m32.nv) * 4 * Bo + di.nbytes + df.size * 4
+    nbytes_v = (3 * m32.nq + 5 * m32.nv) * 4 * Bo + di.nbytes + df.size * 4
+    tb, to = nbytes / HBM_BYTES_PER_S, ops * Bo / F32_OPS_PER_S
+    tvb, tvo = nbytes_v / HBM_BYTES_PER_S, ops_v * Bo / F32_OPS_PER_S
+    bound_ms, bound_vjp_ms = 1e3 * max(tb, to), 1e3 * max(tvb, tvo)
+    print(f"[convex-fused] timing on {card}, B={Bo} f32: step kernel {kernel_ms:.4f} ms/launch on the "
+          f"device (issuing {issue_ms:.4f} ms), bound {bound_ms:.3e} ms ({ops} ops/env-step, {nbytes} "
+          f"bytes), plain version {plain_ms:.2f} ms; VJP kernel {vjp_ms:.4f} ms/launch (issuing "
+          f"{vjp_issue_ms:.4f} ms), bound {bound_vjp_ms:.3e} ms ({ops_v} ops/env-step, {nbytes_v} "
+          f"bytes), plain VJP {plain_vjp_ms:.2f} ms; tape {nodes} nodes per env (capacity {cap}), "
+          f"{fs.tape_bytes(f32, nodes, Bo) / 1e6:.3f} MB per launch")
+    check(issue_ms < kernel_ms and vjp_issue_ms < vjp_ms, "the convex kernels' timing waited on the host")
+    return {"launches": launches, "launches_vjp": launches_vjp, "max_abs_err": f32_err,
+            "vjp_max_abs_err_f64": vjp_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if to >= tb else "bytes",
+            "vjp_ms": vjp_ms, "plain_vjp_ms": plain_vjp_ms, "bound_vjp_ms": bound_vjp_ms,
+            "bound_vjp_by": "operations" if tvo >= tvb else "bytes", "tape_nodes": nodes,
+            "rollout_ms": roll_ms[0], "bptt_ms": bptt_ms[0]}
+
+
+SCENES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "diffdart_tpu_torch", "assets", "scenes")
+
+
+def loaders_world_phase(card, reset_counts):
+    """Phase 30: scene files into Worlds on the card, the stored goldens,
+    IK, and the native pivot solver as the oracle of the sweep kernel's
+    solves. Returns the sweep launches of its oracle check."""
+    from diffdart_tpu_torch.dynamics.kinematics import fk
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.math.lie import quat_normalize
+    from diffdart_tpu_torch.models import cartpole, chain, cube_drop, double_pendulum
+    from diffdart_tpu_torch.neural import HierarchicalIK, solve_ik
+    from diffdart_tpu_torch.ops import native_lcp
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.ops.lcp_pivot import solve_residual
+    from diffdart_tpu_torch.sim.constrained import prepare_constrained, solve_contact_lcp
+    from diffdart_tpu_torch.sim.recording import compare_to_golden
+    from diffdart_tpu_torch.sim.step import rollout
+    from diffdart_tpu_torch.sim.world import World
+
+    f64 = torch.float64
+    out = {}
+    # scene files through io.load_into_builder into a World, card vs CPU
+    for fname in ("pendulum.skel", "pendulum.sdf", "leg.vsk", "twolink.urdf"):
+        ends = []
+        for dev in ("cuda", "cpu"):
+            w = World(dtype=f64, device=dev)
+            w.loadSkeleton(os.path.join(SCENES, fname))
+            nv = w.model.nv
+            w.setVelocities(0.3 * np.random.RandomState(13).randn(nv))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                w.step()
+            torch.cuda.synchronize()
+            ends.append((w.getPositions().cpu(), w.getVelocities().cpu(), 1e3 * (time.perf_counter() - t0) / 50))
+        dq = (ends[0][0] - ends[1][0]).abs().max().item()
+        dv = (ends[0][1] - ends[1][1]).abs().max().item()
+        print(f"[loaders-world] {fname} -> World on the card, f64, nv={nv}, 50 steps vs the CPU: max |dq| "
+              f"{dq:.3e}, |dv| {dv:.3e} (limit 1e-10); {ends[0][2]:.2f} ms per World.step on {card}")
+        check(dq <= 1e-10 and dv <= 1e-10, f"{fname}: the World on the card differs from the CPU's")
+        check(float((ends[0][0] - w.model.neutral_q().cpu()).abs().max()) > 1e-4, f"{fname}: no motion")
+
+    # the stored goldens, B = 256 copies of each start (tests/test_goldens.py's set-up)
+    Bg = 256
+    goldens = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    for name, (q_tol, v_tol) in (("cartpole", (1e-9, 1e-9)), ("cube_drop", (1e-6, 1e-5)),
+                                 ("double_pendulum", (1e-9, 1e-9))):
+        runs = {}
+        for dev, B_ in (("cuda", Bg), ("cpu", 1)):
+            kw = dict(dtype=f64, device=dev)
+            if name == "cartpole":
+                m = cartpole(dt=5e-3, **kw)
+                q0, v0 = torch.tensor([0.1, 0.4], **kw), torch.tensor([-0.2, 0.3], **kw)
+                taus = 0.5 * torch.sin(torch.arange(200.0, **kw))[:, None] * torch.tensor([[1.0, 0.0]], **kw)
+            elif name == "cube_drop":
+                m = cube_drop(dt=2e-3, half=0.1, friction=0.5, restitution=0.3, **kw)
+                q0 = m.neutral_q().clone()
+                q0[6], q0[1], q0[0] = 0.3, 0.1, 0.99499
+                q0[:4] = quat_normalize(q0[:4])
+                v0 = torch.zeros(6, **kw)
+                v0[3] = 1.0
+                taus = torch.zeros(400, 6, **kw)
+            else:
+                m = double_pendulum(dt=2e-3, **kw)
+                q0, v0 = torch.tensor([1.2, -0.5], **kw), torch.zeros(2, **kw)
+                taus = torch.zeros(500, 2, **kw)
+            s0 = State(q=q0.repeat(B_, 1), v=v0.repeat(B_, 1), t=torch.zeros(B_, **kw))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                _, traj = rollout(m, s0, taus[:, None].expand(-1, B_, -1).contiguous())
+            torch.cuda.synchronize()
+            runs[dev] = (m, traj, 1e3 * (time.perf_counter() - t0) / taus.shape[0])
+        m, traj, ms = runs["cuda"]
+        path = os.path.join(goldens, f"{name}_f64.npz")
+        r = compare_to_golden(traj, path, q_tol=q_tol, v_tol=v_tol)
+        rc = compare_to_golden(runs["cpu"][1], path, q_tol=q_tol, v_tol=v_tol)
+        print(f"[loaders-world] golden {name}, B={Bg} on {card}, f64: max |dq| {r['max_dq']:.3e} (tol "
+              f"{q_tol:g}), |dv| {r['max_dv']:.3e} (tol {v_tol:g}) over every env; the CPU port: "
+              f"{rc['max_dq']:.3e}, {rc['max_dv']:.3e}; {ms:.2f} ms per step on the card")
+        check(rc["q_ok"] and rc["v_ok"], f"golden {name}: the CPU port breaks it")
+        if r["q_ok"] and r["v_ok"]:
+            continue
+        # the card's summation order leaves the golden: where, by how much,
+        # and the card held to the CPU port at that state
+        check(name == "cube_drop", f"golden {name}: the card breaks it")
+        g = np.load(path)
+        qc = traj.q.cpu().numpy()
+        over = (np.abs(qc - g["q"][:, None]).max(axis=(1, 2)) > q_tol) | (
+            np.abs(traj.v.cpu().numpy() - g["v"][:, None]).max(axis=(1, 2)) > v_tol)
+        t_dev = int(np.argmax(over))
+        check(t_dev > 0, "cube_drop leaves the golden at its first step")
+        cpu_traj = runs["cpu"][1]
+        sq = cpu_traj.q[t_dev - 1]
+        st_c = State(q=sq.expand(Bg, -1).cuda(), v=cpu_traj.v[t_dev - 1].expand(Bg, -1).cuda())
+        with torch.no_grad():
+            one_c = rollout(m, st_c, torch.zeros(1, Bg, 6, dtype=f64, device="cuda"))[0]
+            one_h = rollout(runs["cpu"][0], State(q=sq, v=cpu_traj.v[t_dev - 1]),
+                            torch.zeros(1, 1, 6, dtype=f64))[0]
+        d1 = max((one_c.q.cpu() - one_h.q).abs().max().item(), (one_c.v.cpu() - one_h.v).abs().max().item())
+        print(f"[loaders-world] golden cube_drop on the card leaves the golden at step {t_dev} (of 400): "
+              f"|dq| {np.abs(qc[t_dev] - g['q'][t_dev]).max():.3e}; from the CPU port's state at step "
+              f"{t_dev - 1}, one step on the card vs the CPU: max difference {d1:.3e} (limit 1e-9)")
+        check(d1 <= 1e-9, "cube_drop: one step on the card differs from the CPU at the deviation")
+
+    # IK, batched on the card against the CPU. Hierarchical IK's lower level
+    # is chaotic in a few envs, in the JAX package as in the port
+    # (scripts/torch_ik_chaos.py: a start moved by 1e-15 ends up to 4e2
+    # apart after 80 iterations in 5 of these 64 envs, and 1e-14 apart in
+    # the rest). A second CPU solve from such a moved start marks the stable
+    # envs; on those the card's 80-iteration q and both levels' errors are
+    # held to the CPU's, and one iteration on every env.
+    Bi = 64
+    rng = np.random.RandomState(14)
+    levels = [[(5, (0, 0, 0))], [(2, (0, 0, 0))]]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m4 = chain(n=4, length=0.3, dtype=f64, device=dev)
+        m6 = chain(n=6, length=0.3, dtype=f64, device=dev)
+        tg4 = fk(m4, torch.tensor(0.4 * np.random.RandomState(15).randn(Bi, 4), device=dev))[1][:, 3]
+        p6 = fk(m6, torch.tensor(0.4 * np.random.RandomState(16).randn(Bi, 6), device=dev))[1]
+        targets = [p6[:, 5][:, None], p6[:, 2][:, None]]
+        zeros = torch.zeros(Bi, 6, dtype=f64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_ik, e_ik = solve_ik(m4, 3, tg4, torch.zeros(Bi, 4, dtype=f64, device=dev), iters=80)
+        q_h, e_h = HierarchicalIK(m6, levels, iters=80).solve(targets, zeros)
+        q_1 = HierarchicalIK(m6, levels, iters=1).solve(targets, zeros)[0]
+        torch.cuda.synchronize()
+        res[dev] = (q_ik.cpu(), e_ik.cpu(), q_h.cpu(), e_h.cpu(), q_1.cpu(), time.perf_counter() - t0)
+    (qa, ea, qh, eh, q1, sec), (qa_c, ea_c, qh_c, eh_c, q1_c, _) = res["cuda"], res["cpu"]
+    moved = zeros + 1e-15 * torch.tensor(np.random.RandomState(17).randn(Bi, 6))
+    stable = (HierarchicalIK(m6, levels, iters=80).solve(targets, moved)[0] - qh_c).abs().amax(1) <= 1e-10
+    d_ik = (qa - qa_c).abs().max().item()
+    d_1 = (q1 - q1_c).abs().max().item()
+    d_h = (qh - qh_c).abs().amax(1)
+    d_e = (eh - eh_c).abs().amax(1)
+    conv = int(((eh < 1e-6).all(1) & stable).sum())
+    n_st = int(stable.sum())
+    print(f"[loaders-world] IK on {card}, B={Bi} f64: solve_ik (4-link chain, 80 iterations) max error "
+          f"{ea.max().item():.3e}, card vs CPU max |dq| {d_ik:.3e} (limit 1e-8); HierarchicalIK (6-link, "
+          f"two levels): one iteration card vs CPU max |dq| {d_1:.3e} (limit 1e-10); 80 iterations: "
+          f"{n_st} of {Bi} envs stable on the CPU (a start moved by 1e-15 ends within 1e-10), {conv} of "
+          f"them with both levels converged (< 1e-6); card vs CPU on the stable envs max |dq| "
+          f"{d_h[stable].max().item():.3e}, max |d error| {d_e[stable].max().item():.3e} (limit 1e-10); "
+          f"on the other {Bi - n_st} envs max |dq| "
+          f"{(d_h[~stable].max().item() if n_st < Bi else 0.0):.3e} (not held); the card's solves "
+          f"{sec:.2f} s")
+    check(ea.max().item() < 1e-5 and d_ik <= 1e-8, "solve_ik on the card differs from the CPU")
+    check(d_1 <= 1e-10, "one HierarchicalIK iteration on the card differs from the CPU")
+    check(n_st >= 0.85 * Bi, "HierarchicalIK is chaotic in more than 15% of the envs on the CPU")
+    check(d_h[stable].max().item() <= 1e-10 and d_e[stable].max().item() <= 1e-10,
+          "HierarchicalIK on the card differs from the CPU on a stable env")
+
+    # the native Dantzig pivot solver (built here with g++) as the exact
+    # oracle of the sweep kernel's solves at cube_drop contact states
+    t0 = time.perf_counter()
+    check(native_lcp.available(), "the native pivot solver does not build")
+    build_s = time.perf_counter() - t0
+    g = np.load(os.path.join(goldens, "cube_drop_f64.npz"))
+    idx = np.nonzero(g["q"][:, 6] < 0.1005)[0]  # the cube within 0.5 mm of the ground
+    sel = rng.choice(idx, Bg)
+    q = torch.tensor(g["q"][sel]) + torch.tensor(1e-4 * rng.randn(Bg, 7))
+    q[:, :4] = quat_normalize(q[:, :4])
+    v = torch.tensor(g["v"][sel]) + torch.tensor(0.05 * rng.randn(Bg, 6))
+    m = cube_drop(dt=2e-3, half=0.1, friction=0.5, restitution=0.3, dtype=f64,
+                  device="cuda").replace(contact_solver="lowrank_pallas")
+    reset_counts()
+    with torch.no_grad():
+        lcp, M, Minv, _, _ = prepare_constrained(m, State(q=q.cuda(), v=v.cuda()))
+        lam = solve_contact_lcp(m, lcp, M)
+    torch.cuda.synchronize()
+    out["launches_native_oracle"] = P.KERNEL_SINGLE.launches
+    resid = solve_residual(lam, lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu, lcp.fidx).cpu().numpy()
+    A, b, lo, hi, mu = (x.cpu().numpy() for x in (lcp.A, lcp.b, lcp.lo, lcp.hi, lcp.mu))
+    fidx = lcp.fidx.cpu().numpy()
+    J, Mi, lam_c = lcp.J.cpu().numpy(), Minv.cpu().numpy(), lam.cpu().numpy()
+    err = np.full(Bg, np.inf)
+    status = np.zeros(Bg, int)
+    for e in range(Bg):
+        x, _, status[e] = native_lcp.boxed_lcp_dantzig(A[e], b[e], lo[e], hi[e], mu[e], fidx)
+        dv_k, dv_n = Mi[e] @ J[e].T @ lam_c[e], Mi[e] @ J[e].T @ x
+        err[e] = np.abs(dv_k - dv_n).max() / max(1.0, np.abs(dv_n).max())
+    exact = status == 0  # the pivot solver's own verdict: an exact solve
+    within = err[exact] <= 1e-6
+    print(f"[loaders-world] native pivot oracle (g++ build {build_s:.1f} s) at {Bg} cube_drop contact "
+          f"states (D = {b.shape[1]}), the 'lowrank_pallas' solve ({out['launches_native_oracle']} sweep "
+          f"launch): the pivot solve is exact on {int(exact.sum())} envs; there the velocity impulse "
+          f"M^-1 J^T lam against the pivot solution's: {int(within.sum())} within 1e-6, max relative "
+          f"{err[exact].max():.3e}, median {np.median(err[exact]):.3e} (lam itself is not unique where four "
+          f"corners touch); the sweep kernel's natural-map residual < 1e-9 on {int((resid < 1e-9).sum())} "
+          f"envs")
+    check(out["launches_native_oracle"] == 1, "the oracle's solve missed the sweep kernel")
+    check(exact.mean() >= 0.9, "the pivot solver is exact on fewer than 90% of the contact states")
+    check(within.all(), "the sweep kernel's solves disagree with the pivot oracle")
     return out
 
 
@@ -1913,6 +2356,12 @@ def main():
     # ---- 25-28. convex and hybrid models, the pair budget, the dynamics API, trajectories ----
     s9 = slice9_phases(card, reset_counts)
 
+    # ---- 29. convex-fused: the octahedron on kernels 1 and 2 ----
+    cvx = convex_fused_phase(card, lib, reset_counts, s9["convex_vmap_ms"])
+
+    # ---- 30. loaders-world: scene files, the World, goldens, IK, the pivot oracle ----
+    s10 = loaders_world_phase(card, reset_counts)
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -1965,7 +2414,8 @@ def main():
               "shapes")},
           "slice9": {k: s9[k] for k in (
               "launches_convex_rollout", "launches_hybrid_fallback", "launches_pair_budget",
-              "launches_catapult_iter", "launches_jumpworm_ilqr", "shapes")}}))]
+              "launches_catapult_iter", "launches_jumpworm_ilqr", "shapes")},
+          "launches_native_oracle": s10["launches_native_oracle"]}))]
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "
@@ -1980,6 +2430,9 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        "convex": {"model": "octahedron, 4 hull slots, D = 12, B = 4096",
+                   **{k: cvx[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "rollout_ms")}},
     }, {
         "name": "fused_step_vjp",
         "route": "cuda",
@@ -1992,6 +2445,11 @@ def main():
         "bound_ms": bound_vjp_ms,
         "bound_by": "operations" if tv_ops >= tv_bytes else "bytes",
         "library_ms": None,
+        "convex": {"model": "octahedron, 4 hull slots, D = 12, B = 4096", "launches": cvx["launches_vjp"],
+                   "max_abs_err_f64": cvx["vjp_max_abs_err_f64"], "ms": cvx["vjp_ms"],
+                   "plain_ms": cvx["plain_vjp_ms"], "bound_ms": cvx["bound_vjp_ms"],
+                   "bound_by": cvx["bound_vjp_by"], "tape_nodes": cvx["tape_nodes"],
+                   "bptt_ms": cvx["bptt_ms"]},
     }, *sweep_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

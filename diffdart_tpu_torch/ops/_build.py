@@ -16,12 +16,15 @@ amplifies rounding by about eps/cfm, which is why sin/cos/sqrt/division
 stay IEEE.
 
 Sources: "fused_step" (the fused step and its VJP), "jacobi_sweeps" (the
-boxed-LCP sweeps). Each is compiled to objects and linked into one
-library. A source whose kernels take long to compile states a line
-`#define KERNEL_PARTS n`: the CUDA build then compiles it n times at once,
-each nvcc with -DKERNEL_PART=i (the source instantiates part i's kernels
-and their C launchers only). The host build is one part: it serves the
-tests, whose workers may build at the same time.
+boxed-LCP sweeps); and, host only, a C++ source elsewhere in the repository
+passed by its path (ops/native_lcp.py: native/lcp_dantzig.cpp, the pivot
+oracle), whose library is built here too and never beside its source. Each
+is compiled to objects and linked into one library. A source whose kernels
+take long to compile states a line `#define KERNEL_PARTS n`: the CUDA build
+then compiles it n times at once, each nvcc with -DKERNEL_PART=i (the
+source instantiates part i's kernels and their C launchers only). The host
+build is one part: it serves the tests, whose workers may build at the
+same time.
 """
 from __future__ import annotations
 
@@ -69,15 +72,16 @@ def _run_all(cmds):
 
 
 @functools.lru_cache(maxsize=None)
-def build(source: str, kind: str = "cuda") -> ctypes.CDLL:
-    """Compile ops/csrc/<source>.cu (if not already built for this source
-    text) and load it; with kind='cuda', in the parts the source states, all
-    at once (see the module docstring). The compiler's report (nvcc: ptxas
+def build(source: str, kind: str = "cuda", path: Path | None = None) -> ctypes.CDLL:
+    """Compile ops/csrc/<source>.cu, or the file at `path` under the name
+    `source` (if not already built for this source text), and load it; with
+    kind='cuda', in the parts the source states, all at once (see the
+    module docstring). The compiler's report (nvcc: ptxas
     registers and spills), kept beside the library, is `lib.build_log`; the
     compile time in seconds is `lib.build_seconds` (0.0 when the library
     was already built)."""
     cc, flags = _compiler(kind)
-    src_path = CSRC / f"{source}.cu"
+    src_path = CSRC / f"{source}.cu" if path is None else Path(path)
     src = src_path.read_bytes()
     stated = re.search(rb"^#define KERNEL_PARTS (\d+)", src, re.M)
     parts = int(stated.group(1)) if stated and kind == "cuda" else 1

@@ -46,7 +46,8 @@
 // adjoint 4; 24 and 8 in float64. Every env of a model records the same
 // number of nodes (the node kinds below): the half-cheetah records 7,243 in
 // float32, 144,860 bytes per env and 593 MB per launch at B = 4096 (7,153
-// and 228,896 bytes per env in float64). ops/fused_step.py counts the nodes
+// and 228,896 bytes per env in float64); the octahedron of the tests (one
+// hull of 6 vertices, 4 slots) 3,903 in float32. ops/fused_step.py counts the nodes
 // once per model and dtype with a launch that only counts, sizes the tape
 // with a margin, and raises when an env overflows it: the kernel then
 // counts on, stores nothing past the capacity, sets a flag and writes no
@@ -55,7 +56,8 @@
 // What each kernel computes, per env: FK, world motion subspaces, body
 // velocities, the structured world inertias, the mass matrix (plus armature
 // and implicit damping/spring terms), bias forces, an unrolled Cholesky and
-// Minv, v*, capsule/sphere/box vs fixed-plane contacts, the LCP rows (contact
+// Minv, v*, capsule/sphere/box/convex-hull vs fixed-plane contacts (a hull's
+// 4 deepest vertices, hull_slots), the LCP rows (contact
 // normal, two friction rows per contact, joint-limit rows, servo and
 // joint-friction rows), the matrix-free boxed LCP (diag and |A| row sums from
 // D^2 dot products of length nv, phased Jacobi sweeps applying
@@ -79,7 +81,8 @@
 // ops/fused_step.py, which also checks every size cap below and raises for a
 // model over one. The subset is the plain version's: REVOLUTE / PRISMATIC /
 // PLANAR / WELD / FREE / BALL joints (quaternion FK and geometric
-// integration), capsule / sphere / box vs fixed-plane contacts, joint-limit
+// integration), capsule / sphere / box / convex-hull vs fixed-plane contacts
+// (the hulls' real vertices in one pool of MAX_HULL_VERTS), joint-limit
 // rows, and servo / joint-friction rows with constant boxes.
 //
 // What bounds them on the H100: not DRAM. An env of kernel 1 reads 3
@@ -132,9 +135,11 @@ constexpr int MAX_PAIRS = 16;
 constexpr int MAX_NC = 32;
 constexpr int MAX_LIM = 16;
 constexpr int MAX_D = 64;
+constexpr int MAX_HULL_VERTS = 64;  // the hull vertex pool, over all convex pairs
+constexpr int HULL_SLOTS = 4;       // slots of a convex pair: its 4 deepest vertices
 
 enum { J_WELD = 0, J_REVOLUTE = 1, J_PRISMATIC = 2, J_BALL = 5, J_PLANAR = 9, J_FREE = 10 };
-enum { G_SPHERE = 0, G_BOX = 1, G_CAPSULE = 2 };
+enum { G_SPHERE = 0, G_BOX = 1, G_CAPSULE = 2, G_CONVEX = 6 };
 
 // Field order and sizes must match _I_LAYOUT / _F_LAYOUT in
 // ops/fused_step.py (checked at load time through fused_step_layout).
@@ -149,6 +154,8 @@ struct DescI {
   int dof_qidx[MAX_NV];
   int pair_body[MAX_PAIRS];
   int pair_type[MAX_PAIRS];
+  int pair_vert_off[MAX_PAIRS];  // a convex pair's first vertex in hull_verts
+  int pair_nvert[MAX_PAIRS];     // and its vertex count (0 for other pairs)
   int lim_dof[MAX_LIM];
   int servo_dof[MAX_NV];
   int fric_dof[MAX_NV];
@@ -183,6 +190,8 @@ struct DescF {
   S pair_t2[MAX_PAIRS][3];
   S pair_mu[MAX_PAIRS];
   S pair_rest[MAX_PAIRS];
+  S pair_off[MAX_PAIRS];             // p_pl . n, folded in float64 on the host
+  S hull_verts[MAX_HULL_VERTS][3];  // geom-local hull vertices, real ones only
   S servo_tgt[MAX_NV];  // per servo row
   S box_c[2 * MAX_NV];  // constant boxes [-c, c]: servo rows, then joint-friction rows
 };
@@ -931,6 +940,60 @@ struct FrontWork {
   V v[MAX_NV], tau[MAX_NV];  // kernel 1's inputs (the VJP's are its tape leaves)
 };
 
+// A hull vertex vl (geom-local, a descriptor constant) in the world,
+// w = Rg vl + pg, and its depth below the plane, off - w . n. The plain
+// version skips a zero coordinate of vl (a structural zero there); the full
+// product here differs from that sum only in the sign of a zero
+// (0 * x + y == y), and on Adj values it records the same nodes whichever
+// vertex a slot takes (a vertex coordinate is never folded: Opaque), so
+// every env of a model records the same number of nodes.
+template <typename V>
+struct Opaque {
+  template <typename S>
+  static HD V of(S x) { return x; }
+};
+template <typename S>
+struct Opaque<Adj<S>> {
+  static HD Adj<S> of(S x) { return Adj<S>(x, K_OPAQUE); }
+};
+
+template <typename V, typename S>
+HD V hull_vertex(const S* vl, const V* Rg, const V* pg, const S* n, S off, V* w) {
+  const V x[3] = {Opaque<V>::of(vl[0]), Opaque<V>::of(vl[1]), Opaque<V>::of(vl[2])};
+  matvec3(Rg, x, w);
+  for (int i = 0; i < 3; ++i) w[i] = w[i] + pg[i];
+  return off - dot3(w, n);
+}
+
+// The slots of a convex pair, chosen on primal values (no tape node): the
+// indices of its HULL_SLOTS deepest vertices, deepest first, as the plain
+// version's _topk_tile_slots chooses them. Each slot is a running maximum
+// over the scores (NaN propagates, as torch.maximum), then the first vertex
+// whose score equals it, so a later equal value never wins a tie; the
+// winner's score drops to -1e30. -1 where no score equals the maximum (a NaN
+// state); slots past the hull's vertex count are left -1 (dead slots).
+template <typename S>
+HD void hull_slots(const S (*verts)[3], int nvert, const S* Rg, const S* pg, const S* n, S off,
+                   int* sel) {
+  S ms[MAX_HULL_VERTS];
+  for (int j = 0; j < nvert; ++j) {
+    S w[3];
+    ms[j] = hull_vertex<S, S>(verts[j], Rg, pg, n, off, w);
+  }
+  for (int s = 0; s < HULL_SLOTS; ++s) sel[s] = -1;
+  const int k = nvert < HULL_SLOTS ? nvert : HULL_SLOTS;
+  for (int s = 0; s < k; ++s) {
+    S best = ms[0];
+    for (int j = 1; j < nvert; ++j) best = tmax(best, ms[j]);
+    for (int j = 0; j < nvert; ++j)
+      if (ms[j] == best) {
+        sel[s] = j;
+        ms[j] = S(-1e30);
+        break;
+      }
+  }
+}
+
 // The step's first stage, one env, on values of type V: FK, the mass
 // matrix and its inverse, the unconstrained velocity v*, the contacts and
 // the LCP rows, into fr (lcp.D = 0: no rows); w holds its working arrays.
@@ -1172,10 +1235,34 @@ HD void env_front(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
     matvec3(R[b], F.pair_pos[p], pg);
     for (int k = 0; k < 3; ++k) pg[k] = pg[k] + P[b][k];
     const S* n = F.pair_n[p];
-    const int nslot = gt == G_BOX ? 8 : (gt == G_CAPSULE ? 2 : 1);
+    const int nslot = gt == G_BOX ? 8 : (gt == G_CAPSULE ? 2 : (gt == G_CONVEX ? HULL_SLOTS : 1));
+    const S(*verts)[3] = F.hull_verts + I.pair_vert_off[p];
+    const int nvert = I.pair_nvert[p];
+    int sel[HULL_SLOTS];
+    if (gt == G_CONVEX) {
+      S Rgp[9], pgp[3];
+      for (int k = 0; k < 9; ++k) Rgp[k] = primal(Rg[k]);
+      for (int k = 0; k < 3; ++k) pgp[k] = primal(pg[k]);
+      hull_slots<S>(verts, nvert, Rgp, pgp, n, F.pair_off[p], sel);
+    }
     for (int s = 0; s < nslot; ++s, ++c) {
       V cpt[3], pos[3], dv[3], depth;
-      if (gt == G_BOX) {
+      if (gt == G_CONVEX) {
+        // slot s: the vertex hull_slots chose, its depth and its world
+        // position (the gradient reaches that vertex alone, as through the
+        // plain version's selects); a slot past the hull's vertex count is a
+        // structural zero, never valid
+        if (s >= nvert) {
+          depth = V(0);
+          for (int k = 0; k < 3; ++k) pos[k] = V(0);
+        } else {
+          const bool found = sel[s] >= 0;
+          V w[3];
+          const V d = hull_vertex<V, S>(verts[found ? sel[s] : 0], Rg, pg, n, F.pair_off[p], w);
+          depth = select(found, d, V(0));
+          for (int k = 0; k < 3; ++k) pos[k] = select(found, w[k], V(0));
+        }
+      } else if (gt == G_BOX) {
         // corners in (sx, sy, sz) order, each from -1 to +1
         const S loc[3] = {F.pair_size[p][0] * ((s & 4) ? S(1) : S(-1)),
                           F.pair_size[p][1] * ((s & 2) ? S(1) : S(-1)),
@@ -1977,6 +2064,7 @@ void fused_step_layout(int* out) {
   out[9] = fused::MAX_D;
   out[10] = (int)sizeof(fused::Node<float>);
   out[11] = (int)sizeof(fused::Node<double>);
+  out[12] = fused::MAX_HULL_VERTS;
 }
 
 // (q', v') = step(q, v, tau), one warp per env; D and nv are the

@@ -13,10 +13,11 @@ grad goes through FusedStepFn, whose backward is the VJP kernel (port of
 thread records, sized once per model and dtype by a counting launch); on
 the CPU autograd runs through the plain version. The kernels cover the
 plain version's subset (REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL
-joints; capsule / sphere / box vs fixed-plane contacts; joint-limit, servo
-and joint-friction rows) within the size caps below, but neither its
-convex-hull slots nor its hybrid LCP (kernel_unsupported_reason); a CUDA
-call for a model outside that raises NotImplementedError; rollout_tiled
+joints; capsule / sphere / box / convex-hull vs fixed-plane contacts, a
+hull's 4 deepest vertices as its slots; joint-limit, servo and
+joint-friction rows) within the size caps below, but not its hybrid LCP
+(kernel_unsupported_reason); a CUDA call for a model outside that raises
+NotImplementedError; rollout_tiled
 runs a model in the hybrid LCP mode through the plain version on either
 device, as the JAX package does.
 """
@@ -32,7 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
-from diffdart_tpu_torch.dynamics.model import GeomType, JointType, Model, State
+from diffdart_tpu_torch.dynamics.model import JointType, Model, State
 from diffdart_tpu_torch.ops import _build
 from diffdart_tpu_torch.sim.tilestep import (
     SLOTS,
@@ -48,6 +49,7 @@ from diffdart_tpu_torch.sim.tilestep import (
 
 # size caps compiled into the kernel (fused_step.cu); checked at load time
 MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D = 16, 16, 16, 16, 32, 16, 64
+MAX_HULL_VERTS = 64  # the pool of hull vertices, over every convex pair
 # bytes of one tape node (Node<S>: two int32 operand indices, two partials)
 # and of its adjoint, per dtype; checked at load time
 NODE_BYTES = {torch.float32: 16, torch.float64: 24}
@@ -56,7 +58,8 @@ NODE_BYTES = {torch.float32: 16, torch.float64: 24}
 _I_LAYOUT = [
     ("hdr", 11), ("parent", MAX_NB), ("jtype", MAX_NB), ("q_off", MAX_NB), ("v_off", MAX_NB),
     ("anc", MAX_NB * MAX_NV), ("dof_body", MAX_NV), ("dof_qidx", MAX_NV),
-    ("pair_body", MAX_PAIRS), ("pair_type", MAX_PAIRS), ("lim_dof", MAX_LIM),
+    ("pair_body", MAX_PAIRS), ("pair_type", MAX_PAIRS), ("pair_vert_off", MAX_PAIRS),
+    ("pair_nvert", MAX_PAIRS), ("lim_dof", MAX_LIM),
     ("servo_dof", MAX_NV), ("fric_dof", MAX_NV),
 ]
 _F_LAYOUT = [
@@ -68,6 +71,7 @@ _F_LAYOUT = [
     ("pair_rot", MAX_PAIRS * 9), ("pair_pos", MAX_PAIRS * 3), ("pair_size", MAX_PAIRS * 3),
     ("pair_n", MAX_PAIRS * 3), ("pair_p", MAX_PAIRS * 3), ("pair_t1", MAX_PAIRS * 3),
     ("pair_t2", MAX_PAIRS * 3), ("pair_mu", MAX_PAIRS), ("pair_rest", MAX_PAIRS),
+    ("pair_off", MAX_PAIRS), ("hull_verts", MAX_HULL_VERTS * 3),
     ("servo_tgt", MAX_NV), ("box_c", 2 * MAX_NV),
 ]
 
@@ -85,11 +89,10 @@ def _flat(layout, fields, dtype):
 def kernel_unsupported_reason(model: Model) -> str | None:
     """Why the CUDA kernel cannot run `model` (None if it can). Models
     outside the plain version's subset raise TileStepUnsupported from
-    build_tile_step first. The two parts of the subset that the kernel
-    lacks come first: convex-hull slots and the hybrid LCP."""
+    build_tile_step first. The part of the subset that the kernel lacks
+    comes first, the hybrid LCP; then the size caps, among them the pool of
+    hull vertices that the convex pairs share."""
     plan = contact_plan(model)
-    if any(p["gtype"] == GeomType.CONVEX for p in plan):
-        return "kernel 1 has no convex slots"
     if lcp_mode(model) == "xla":
         return ("the hybrid LCP runs outside the kernel (more than 64 LCP rows, or a contact "
                 "budget below the slot count)")
@@ -99,7 +102,8 @@ def kernel_unsupported_reason(model: Model) -> str | None:
     nlim = len(model.limited_dofs) if model.enable_joint_limits else 0
     caps = [("bodies", model.nbody, MAX_NB), ("nq", model.nq, MAX_NQ), ("nv", model.nv, MAX_NV),
             ("contact pairs", len(plan), MAX_PAIRS), ("contact slots", nc, MAX_NC),
-            ("limited dofs", nlim, MAX_LIM), ("LCP rows", lcp_rows(model, nc), MAX_D)]
+            ("limited dofs", nlim, MAX_LIM), ("LCP rows", lcp_rows(model, nc), MAX_D),
+            ("hull vertices", sum(len(p.get("verts", ())) for p in plan), MAX_HULL_VERTS)]
     for what, n, cap in caps:
         if n > cap:
             return f"{what} = {n} exceeds the kernel's cap of {cap}"
@@ -146,6 +150,9 @@ def pack_descriptor(model: Model):
         lim_dof=lim, servo_dof=servo, fric_dof=fric,
     )
     tangents = [_tangent_basis_const(p["n"]) for p in plan]
+    nvert = [len(p.get("verts", ())) for p in plan]
+    ints.update(pair_vert_off=np.cumsum([0] + nvert[:-1]), pair_nvert=nvert)
+    hulls = [p["verts"] for p in plan if "verts" in p]
     floats = dict(
         X_rot=_np(model.X_rot), X_pos=_np(model.X_pos), axis=axis, axis2=axis2,
         rot_ax=rot_ax, rot_K=rot_K, rot_K2=rot_K2,
@@ -159,6 +166,9 @@ def pack_descriptor(model: Model):
         pair_p=[p["p_pl"] for p in plan], pair_t1=[t[0] for t in tangents],
         pair_t2=[t[1] for t in tangents], pair_mu=[p["friction"] for p in plan],
         pair_rest=[p["restitution"] for p in plan],
+        # the depth's offset p_pl . n, folded in float64 as the plain version folds it
+        pair_off=[float(np.dot(p["p_pl"], p["n"])) if "verts" in p else 0.0 for p in plan],
+        hull_verts=np.concatenate(hulls) if hulls else (),
         servo_tgt=_np(model.servo_target)[servo],
         box_c=np.concatenate([_np(model.force_limit)[servo] * dt, _np(model.joint_friction)[fric] * dt]),
     )
@@ -180,9 +190,10 @@ def _load(kind: str) -> ctypes.CDLL:
         _build.declare(getattr(lib, name), 14, 2)
     want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
             MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D,
-            NODE_BYTES[torch.float32], NODE_BYTES[torch.float64]]
-    buf = (ctypes.c_int * 12)()
-    # [DescI ints, DescF<float>, DescF<double>, the caps, Node<float>, Node<double>]
+            NODE_BYTES[torch.float32], NODE_BYTES[torch.float64], MAX_HULL_VERTS]
+    buf = (ctypes.c_int * len(want))()
+    # [DescI ints, DescF<float>, DescF<double>, the caps, Node<float>, Node<double>,
+    #  the hull vertex cap]
     lib.fused_step_layout(buf)
     got = list(buf)
     if got != want:
@@ -575,8 +586,8 @@ def rollout_tiled(model: Model, state: State, taus) -> State:
     issues one small kernel per element op; sim/fast.py::rollout_fast sends
     such models to the vmap stack there instead. Any other model runs
     FusedStep: the plain version on CPU tensors; on CUDA tensors the
-    kernels, or NotImplementedError naming kernel_unsupported_reason
-    (convex slots, a size cap)."""
+    kernels, or NotImplementedError naming kernel_unsupported_reason (a
+    size cap)."""
     soa_q, soa_v = to_soa(state.q), to_soa(state.v)
     taus_soa = taus.transpose(1, 2).contiguous()
     if lcp_mode(model) == "xla":

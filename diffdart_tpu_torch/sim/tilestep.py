@@ -22,9 +22,10 @@ assembled rows, gathers them into batch-first dense (B, D, nv) tensors and
 solves them with ops/lcp_lowrank.py::boxed_lcp_lowrank (plain Jacobi
 sweeps, polish, pivot refinement, IFT gradient), as _xla_lcp_vnew does in
 the JAX package; a contact budget keeps each env's K deepest valid slots.
-The fused-step kernel has neither convex slots nor the hybrid LCP
-(ops/fused_step.py::kernel_unsupported_reason), so on the card such models
-run on the vmap stack (sim/fast.py falls back with the reason named).
+The fused-step kernel has the convex slots but not the hybrid LCP
+(ops/fused_step.py::kernel_unsupported_reason), so on the card a model in
+the hybrid mode runs on the vmap stack (sim/fast.py falls back with the
+reason named).
 
 Raises TileStepUnsupported for the AABB `pair_budget` broadphase (the JAX
 tile step raises there too), for SCREW, UNIVERSAL, EULER, TRANSLATIONAL and

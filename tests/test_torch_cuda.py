@@ -21,8 +21,10 @@ warp per env) equals the VJP recording's primal bit for bit, and its C
 launcher refuses a block over the card's shared memory.
 
 KERNEL_MODELS covers every joint, contact and row type of the kernel's
-subset; tests/test_torch_fused_step.py runs the same models through the
-kernel's host build.
+subset, the convex slots too (the octahedron); tests/test_torch_fused_step.py
+runs the same models through the kernel's host build. rollout_fast on the
+octahedron launches each kernel once per step with no warning, and a World
+loaded from the port's scene files steps on the card as on the CPU.
 
 Sweep kernel: equal bit for bit to its host build (ops/pallas_lcp.py::
 host_sweeps, the same per-warp code on the CPU) in both dtypes at B = 1,
@@ -111,6 +113,23 @@ def _ball_prismatic(dtype, device):
     return b.finalize(dtype=dtype, device=device), np.array([1.0, 0.1, -0.1, 0.0, 0.02])
 
 
+def _octahedron(dtype, device):
+    """FREE joint with a convex hull of 6 vertices on a plane (4 slots, the
+    deepest vertices, D = 12), pivot refinement off (the fused LCP has
+    none). The centre 0.05 above the plane puts at least one vertex below
+    it in any attitude (an octahedron of radius 0.1 reaches 0.1/sqrt(3)
+    down at least)."""
+    b = ModelBuilder(dt=2e-3)
+    body = b.add_body(parent=-1, jtype=JointType.FREE, mass=1.0, inertia=np.eye(3) * 0.004)
+    b.add_geom(body, GeomType.CONVEX, verts=OCTA, friction=0.6)
+    b.add_geom(-1, GeomType.PLANE, friction=0.6)
+    q0 = np.array([0.9, 0.3, -0.2, 0.25, 0.0, 0.0, 0.05])
+    q0[:4] /= np.linalg.norm(q0[:4])
+    return b.finalize(dtype=dtype, device=device).replace(lcp_pivot_iters=0), q0
+
+
+OCTA = 0.1 * np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1.0]])
+
 # name -> builder(dtype, device) -> (model, q0 as numpy)
 KERNEL_MODELS = {
     "worm": _worm,
@@ -118,6 +137,7 @@ KERNEL_MODELS = {
     "servo_cheetah": _servo_cheetah,
     "free_cube": _free_cube,
     "ball_prismatic": _ball_prismatic,
+    "octahedron": _octahedron,
 }
 
 
@@ -302,9 +322,10 @@ def test_rollout_fast_over_the_kernel_caps_falls_back():
 def test_rollout_tiled_raises_where_the_kernel_cannot_run():
     """On the card rollout_tiled runs the kernels, or the hybrid branch for
     a model in the hybrid LCP mode, as the JAX package does; for a model
-    over a cap (the 17-body chain) or with convex slots (an octahedron
-    hull) it raises NotImplementedError with the reason and launches
-    nothing. The budgeted worm (hybrid mode) runs, with no fused launch."""
+    over a cap (the 17-body chain) it raises NotImplementedError with the
+    reason and launches nothing. A model with convex slots (an octahedron
+    hull) runs on the kernel: one launch per step. The budgeted worm
+    (hybrid mode) runs, with no fused launch."""
     _cuda()
     b = ModelBuilder(dt=1e-3)
     prev = -1
@@ -319,13 +340,18 @@ def test_rollout_tiled_raises_where_the_kernel_cannot_run():
     octa = b.finalize(dtype=torch.float32, device="cuda")
     B = 64
     n0 = fs.KERNEL.launches
-    for m, match in ((chain, "bodies = 17 exceeds the kernel's cap of 16"),
-                     (octa, "kernel 1 has no convex slots")):
-        q = m.neutral_q().repeat(B, 1)
-        q[:, -1] += 0.1 if m is octa else 0.0
-        state = State(q=q, v=torch.zeros(B, m.nv, device="cuda"))
-        with pytest.raises(NotImplementedError, match=match):
-            fs.rollout_tiled(m, state, torch.zeros(2, B, m.nv, device="cuda"))
+    state = State(q=chain.neutral_q().repeat(B, 1), v=torch.zeros(B, chain.nv, device="cuda"))
+    with pytest.raises(NotImplementedError, match="bodies = 17 exceeds the kernel's cap of 16"):
+        fs.rollout_tiled(chain, state, torch.zeros(2, B, chain.nv, device="cuda"))
+    assert fs.KERNEL.launches == n0
+    q = octa.neutral_q().repeat(B, 1)
+    q[:, -1] += 0.08
+    out = fs.rollout_tiled(octa, State(q=q, v=torch.zeros(B, octa.nv, device="cuda")),
+                           torch.zeros(2, B, octa.nv, device="cuda"))
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == n0 + 2
+    assert torch.isfinite(out.q).all() and torch.isfinite(out.v).all()
+    n0 = fs.KERNEL.launches
     worm, wq0 = _worm(torch.float32, "cuda")
     worm = worm.replace(contact_budget=3)
     assert fs.lcp_mode(worm) == "xla"
@@ -687,5 +713,53 @@ def test_humanoid_rollout_through_the_kernel():
     assert P.KERNEL_SINGLE.launches == n0 + T
     assert torch.isfinite(fin.q).all() and torch.isfinite(fin.v).all()
     assert (fin.q[:, 6] > 0.2).all()
-    with pytest.warns(UserWarning, match="kernel 1 has no convex slots"), torch.no_grad():
+    with pytest.warns(UserWarning, match="the hybrid LCP runs outside the kernel"), torch.no_grad():
         rollout_fast(m, state, taus[:2])
+
+
+@pytest.mark.cuda
+def test_octahedron_rollout_fast_launches_both_kernels():
+    """rollout_fast on the octahedron (convex slots), float32, B = 1024,
+    T = 5, taus that require grad: T launches of the step kernel and, in
+    the backward pass, T of the VJP kernel, no warning, a finite gradient."""
+    import warnings
+
+    _cuda()
+    m, q0 = _octahedron(torch.float32, "cuda")
+    B, T = 1024, 5
+    q, v, _ = (torch.tensor(x, dtype=torch.float32, device="cuda") for x in inputs(q0, m.nq, m.nv, B, 21))
+    taus = (0.1 * torch.randn(T, B, m.nv, device="cuda")).requires_grad_(True)
+    n0, g0 = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        out = rollout_fast(m, State(q=q, v=v), taus)
+        (out.q[:, 6] ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == n0 + T and fs.VJP_KERNEL.launches == g0 + T
+    assert torch.isfinite(out.q).all() and torch.isfinite(taus.grad).all()
+    assert taus.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_world_on_the_card_matches_the_cpu():
+    """A World loaded from the port's scene files (SKEL, SDF, VSK, URDF)
+    on the card, float64, 20 steps from seeded velocities, equals the same
+    World on the CPU within 1e-10."""
+    import os
+
+    from diffdart_tpu_torch.sim.world import World
+
+    _cuda()
+    scenes = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "diffdart_tpu_torch", "assets", "scenes")
+    for fname in ("pendulum.skel", "pendulum.sdf", "leg.vsk", "twolink.urdf"):
+        ends = []
+        for dev in ("cuda", "cpu"):
+            w = World(dtype=torch.float64, device=dev)
+            w.loadSkeleton(os.path.join(scenes, fname))
+            w.setVelocities(0.3 * np.random.RandomState(3).randn(w.model.nv))
+            for _ in range(20):
+                w.step()
+            ends.append((w.getPositions().cpu(), w.getVelocities().cpu()))
+        assert (ends[0][0] - ends[1][0]).abs().max() <= 1e-10, fname
+        assert (ends[0][1] - ends[1][1]).abs().max() <= 1e-10, fname

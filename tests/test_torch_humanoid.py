@@ -190,11 +190,12 @@ def test_rollout_fast_warns_and_runs_the_vmap_stack(vmap_rollout):
     """With the mass requiring grad, rollout_fast warns and runs the vmap
     stack, which gives the mass its gradient: 3 steps, the final state
     equal to the vmap stack's rollout. On the card the humanoid also
-    warns without grad, naming kernel 1's missing convex slots."""
+    warns without grad, naming the hybrid LCP (147 rows), which runs
+    outside the kernel."""
     from diffdart_tpu_torch.sim import fast
 
     m, q, v, taus, ref = vmap_rollout
-    assert "kernel 1 has no convex slots" in fast._fallback_reason(m, torch.device("cuda"))
+    assert "the hybrid LCP runs outside the kernel" in fast._fallback_reason(m, torch.device("cuda"))
     mass = m.mass.clone().requires_grad_(True)
     with pytest.warns(UserWarning, match="require grad"):
         fin = rollout_fast(m.replace(mass=mass), State(q=T(q), v=T(v)), taus)

@@ -106,25 +106,36 @@ def test_topk_tie_order_matches_jax():
 
 
 def test_kernel_names_the_convex_reason():
-    """Kernel 1 has no convex slots: on a CPU model the kernel's reason
-    names them, before any cap check, and on the card rollout_fast would
-    warn with it and take the vmap stack; the plain version takes the
-    model (4 slots per hull)."""
+    """Kernel 1 has convex slots (4 per hull, as the plain version): the
+    kernel names no reason for the octahedron, so on the card rollout_fast
+    takes the fused path without a warning, and the packer lays out the
+    hull's 6 vertices in the descriptor's pool. A model over a cap (a
+    17-body chain) still gets its reason."""
     m = octa_model()
     assert SLOTS[GeomType.CONVEX] == 4
-    assert fs.kernel_unsupported_reason(m) == "kernel 1 has no convex slots"
+    assert fs.kernel_unsupported_reason(m) is None
     assert fast.supports_fused(m)
-    assert "kernel 1 has no convex slots" in fast._fallback_reason(m, torch.device("cuda"))
+    assert fast._fallback_reason(m, torch.device("cuda")) is None
     assert fast._fallback_reason(m, torch.device("cpu")) is None
-    with pytest.raises(NotImplementedError, match="convex slots"):
-        fs.pack_descriptor(m)
+    di, df = fs.pack_descriptor(m)
+    ints = dict(zip([n for n, _ in fs._I_LAYOUT], np.split(di, np.cumsum([k for _, k in fs._I_LAYOUT])[:-1])))
+    floats = dict(zip([n for n, _ in fs._F_LAYOUT], np.split(df, np.cumsum([k for _, k in fs._F_LAYOUT])[:-1])))
+    assert ints["pair_nvert"][0] == 6 and ints["pair_vert_off"][0] == 0
+    np.testing.assert_array_equal(floats["hull_verts"][:18].reshape(6, 3), OCTA)
+    b = ModelBuilder(dt=1e-3)
+    prev = -1
+    for _ in range(fs.MAX_NB + 1):
+        prev = b.add_body(parent=prev, jtype=JointType.REVOLUTE, axis=(0, 1, 0), X_pos=(0, 0, -0.1))
+    chain = b.finalize(dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="bodies = 17 exceeds the kernel's cap of 16"):
+        fs.pack_descriptor(chain)
 
 
 def test_rollout_tiled_runs_the_plain_version_on_the_cpu():
     """The octahedron is not in the hybrid LCP mode, so rollout_tiled runs
     FusedStep, which on CPU tensors is the plain version: its final state
     equals a loop over the plain step, bit for bit. (On the card the same
-    call raises, naming the convex slots.)"""
+    call launches the step kernel once per step.)"""
     m = octa_model()
     q, v, tau = octa_batch(m)
     taus = torch.tensor(np.stack([tau, -tau]))
