@@ -281,13 +281,54 @@ IK, recordings and the native pivot oracle:
                  the pivot solve exact (status 0) on >= 90% of them, and on
                  every such env the velocity impulse M^-1 J^T lam within
                  1e-6 of the pivot solution's.
+Slice 11: data-parallel BPTT on torch.distributed, profiling, checkpoints,
+the viewer and the bridge (the last modules of the port):
+ 31. parallel -- the half-cheetah, B = 4096, T = 50, float32, a shared
+                 control tape (T, nv) as the replicated params plus per-env
+                 noise 0.1 N(0,1) in the batch, per-env loss q_T[:, 1]^2 +
+                 1e-4 mean(tau^2): (a) make_mesh(1) on cuda:0, shard_batch,
+                 data_parallel_grad: T launches of each fused kernel, loss
+                 and gradient equal to the same loss's plain backward() bit
+                 for bit (B a power of two: the division is exact); (b) the
+                 same in a one-rank NCCL group (init_distributed on
+                 127.0.0.1, backend nccl: the all-reduce on the card), equal
+                 to (a) bit for bit, the data-parallel step and the bare BPTT
+                 timed (median of 5) and one all-reduce of the packed sums;
+                 (c) two processes on the one card (this script with
+                 --dp-child), backend gloo (NCCL refuses two ranks on one
+                 device), each feeding 2,048 envs (local_env_slice): T
+                 launches of each kernel per process, the loss within rtol
+                 1e-5 and the gradient within 1e-5 max|g| of (a), the two
+                 equal bit for bit; each child killed at 240 s.
+ 32. utils    -- device_trace around one rollout_fast (T = 50) inside
+                 named_scope, in this process after phases 1-31: every
+                 kernel launch the trace records has its kernel event
+                 (device_trace raises otherwise), T of them the step
+                 kernel's by name, and the scope; a checkpoint resume of
+                 phase 31's data-parallel Adam loop (3 steps, save,
+                 restore on the card, 2 steps) equal to 5 straight steps
+                 bit for bit.
+ 33. viewer   -- trajectory_frames of env 0 of a card rollout of the
+                 half-cheetah (T = 50, one kernel-1 launch per step) against
+                 the same q on the CPU within one unit in the fifth place
+                 (both round to 5 places); GUIWebsocketServer on
+                 127.0.0.1, port 0, streams the scene and T frames from
+                 card states to a raw-socket client in this process, which
+                 parses them.
+ 34. bridge   -- torch_bridge.timestep on cube_drop with
+                 contact_solver='lowrank_pallas', float64, 20 steps landing
+                 on the cube's contacts: one jacobi_sweeps_single launch
+                 per step, q and v within 1e-9 of the CPU port's, the
+                 chain's gradient within 1e-8 relative.
 Then one JSON line with the kernels' numbers (jacobi_sweeps_single also
 under "humanoid": its launches in phases 23-24 and its readings at each
 humanoid D beside their bounds, and under "slice9" its launches in phases
 25-28 and the max_abs_err of each "[sweeps]" comparison, and its launch in
 phase 30's oracle check; jacobi_sweeps its step_batched launches of phases
 22, 25 and 26; fused_step and fused_step_vjp the octahedron's numbers of
-phase 29 under "convex"),
+phase 29 under "convex", and phase 31's launches per process and device
+share under "parallel"; jacobi_sweeps_single phase 34's launches under
+"launches_bridge"),
 the card line, and the result line {"ok": true, "device": {...}}.
 """
 import json
@@ -1626,10 +1667,442 @@ def loaders_world_phase(card, reset_counts):
     return out
 
 
+DP_B, DP_T = 4096, 50  # phase 31: the half-cheetah's data-parallel BPTT
+
+
+def dp_problem(device="cuda"):
+    """Phase 31's data-parallel BPTT: the half-cheetah, float32, B = 4096,
+    T = 50, standing start; the replicated params a shared control tape
+    (T, nv), 0.1 N(0,1); per-env noise 0.1 N(0,1) in the batch (B, T, nv),
+    both from numpy seeds, so every process makes the same numbers; the
+    per-env loss q_T[:, 1]^2 + 1e-4 mean(tau^2), phase 9's loss per env.
+    Returns (model, batch as a tree of host tensors, per_env, tape)."""
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.models import cheetah_init_q, half_cheetah
+    from diffdart_tpu_torch.sim.fast import rollout_fast
+
+    m = half_cheetah(dt=2e-3, dtype=torch.float32, device=device)
+    nv = m.nv
+    noise = torch.tensor(0.1 * np.random.RandomState(31).randn(DP_B, DP_T, nv), dtype=torch.float32)
+    tape = torch.tensor(0.1 * np.random.RandomState(32).randn(DP_T, nv), dtype=torch.float32,
+                        device=device)
+    batch = {"state": State(q=cheetah_init_q(m).cpu().repeat(DP_B, 1), v=torch.zeros(DP_B, nv)),
+             "noise": noise}
+
+    def per_env(tape_, b):
+        taus = (tape_[None] + b["noise"]).transpose(0, 1)
+        final = rollout_fast(m, b["state"], taus)
+        return final.q[:, 1] ** 2 + 1e-4 * (taus**2).mean((0, 2))
+
+    return m, batch, per_env, tape
+
+
+def dp_child():
+    """One process of phase 31(c), started by parallel_phase with DD_PID
+    and DD_COORD set: joins a two-process gloo group, feeds its half of the
+    batch (local_env_slice) on cuda:0, and prints one line "DP-CHILD
+    {json}" with its loss, gradient and launches."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.parallel import (
+        data_parallel_grad, global_mesh, init_distributed, local_env_slice, make_global_batch,
+        shutdown_distributed)
+    from diffdart_tpu_torch.parallel.comm import tree_map
+
+    pid = int(os.environ["DD_PID"])
+    check(init_distributed(os.environ["DD_COORD"], 2, pid, backend="gloo"), "no process group")
+    try:
+        mesh = global_mesh(devices=["cuda:0", "cuda:0"])
+        _, batch, per_env, tape = dp_problem()
+        sl = local_env_slice(DP_B)
+        sb = make_global_batch(mesh, tree_map(lambda x: x[sl], batch))
+        fs.KERNEL.launches = fs.VJP_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        loss, grad = data_parallel_grad(per_env, mesh)(tape, sb)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print("DP-CHILD " + json.dumps({
+            "pid": pid, "backend": dist.get_backend(), "device": str(sb.devices[0]),
+            "rows": [sl.start, sl.stop], "loss": loss.item(),
+            "grad": grad.flatten().tolist(), "launches": fs.KERNEL.launches,
+            "launches_vjp": fs.VJP_KERNEL.launches, "seconds": secs}), flush=True)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(card, reset_counts, kernel_ms, vjp_ms):
+    """Phase 31: data-parallel BPTT on the card, (a) one process, one
+    shard, (b) a one-rank NCCL group, (c) two gloo processes on the one
+    card. Returns the kernel line's "parallel" entries."""
+    import torch.distributed as dist
+
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.parallel import (
+        data_parallel_grad, init_distributed, make_mesh, shard_batch, shutdown_distributed)
+
+    t_phase = time.perf_counter()
+    B_, T_ = DP_B, DP_T
+    _, batch, per_env, tape = dp_problem()
+    # (a) one process, make_mesh(1) on cuda:0
+    mesh = make_mesh(1)
+    check(mesh.devices == (torch.device("cuda", 0),), f"make_mesh(1) gave {mesh.devices}")
+    sb = shard_batch(mesh, batch)
+    step = data_parallel_grad(per_env, mesh)
+    reset_counts()
+    loss_a, grad_a = step(tape, sb)
+    torch.cuda.synchronize()
+    launches_a = (fs.KERNEL.launches, fs.VJP_KERNEL.launches)
+
+    def bare():
+        x = tape.clone().requires_grad_(True)
+        ref = per_env(x, sb.shards[0]).mean()
+        ref.backward()
+        return ref.detach(), x.grad
+
+    ref_loss, ref_grad = bare()
+    torch.cuda.synchronize()
+    d_loss = (loss_a - ref_loss).abs().item()
+    d_grad = (grad_a - ref_grad).abs().max().item()
+    print(f"[parallel] (a) one process, make_mesh(1) = (cuda:0,), half-cheetah B={B_} T={T_} f32, "
+          f"shared tape + per-env noise: {launches_a[0]} step and {launches_a[1]} VJP launches; loss "
+          f"{loss_a.item():.9g}; against the same loss's plain backward(): |d loss| {d_loss:.3e}, "
+          f"max |d grad| {d_grad:.3e} (max |grad| {ref_grad.abs().max().item():.3e}), bit for bit "
+          f"{d_loss == 0 and d_grad == 0}")
+    check(launches_a == (T_, T_), f"expected {T_} launches of each kernel, got {launches_a}")
+    check(bool(torch.isfinite(grad_a).all()) and grad_a.abs().max().item() > 0, "bad gradient")
+    check(d_loss == 0 and d_grad == 0, "the data-parallel step differs from the plain backward()")
+
+    # (b) the same through a one-rank NCCL group: the all-reduce on the card
+    port = free_port()
+    check(init_distributed(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="nccl"),
+          "init_distributed formed no group")
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"backend {backend}, not nccl")
+        reset_counts()
+        loss_b, grad_b = step(tape, sb)
+        torch.cuda.synchronize()
+        launches_b = (fs.KERNEL.launches, fs.VJP_KERNEL.launches)
+        same_b = bool(torch.equal(loss_b, loss_a) and torch.equal(grad_b, grad_a))
+        dp_ms = median_ms(lambda: step(tape, sb))
+        bare_ms = median_ms(bare)
+        buf = torch.zeros(grad_a.numel() + 2, device="cuda")
+        ar_ms = median_ms(lambda: dist.all_reduce(buf), runs=21)
+    finally:
+        shutdown_distributed()
+    print(f"[parallel] (b) one-rank {backend} group on 127.0.0.1:{port}: {launches_b[0]} step and "
+          f"{launches_b[1]} VJP launches; loss and grad equal to (a) bit for bit: {same_b}; timing "
+          f"on {card} (median of 5, CUDA events): data-parallel step {dp_ms[0]:.3f} ms ({dp_ms[1]:.3f}-"
+          f"{dp_ms[2]:.3f}), bare BPTT (loss.mean().backward()) {bare_ms[0]:.3f} ms ({bare_ms[1]:.3f}-"
+          f"{bare_ms[2]:.3f}); the layer's cost {dp_ms[0] - bare_ms[0]:.3f} ms "
+          f"({100 * (dp_ms[0] - bare_ms[0]) / bare_ms[0]:.2f}%); one all_reduce of the "
+          f"{buf.numel()} floats (loss, grad, count) {ar_ms[0]:.4f} ms (median of 21)")
+    check(launches_b == (T_, T_), f"expected {T_} launches of each kernel, got {launches_b}")
+    check(same_b, "the one-rank NCCL step differs from (a)")
+
+    # (c) two processes on the one card: gloo (NCCL refuses two ranks on one device)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-child"],
+        env=dict(os.environ, DD_PID=str(i), DD_COORD=f"127.0.0.1:{port}"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(2)]
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240) + (p.returncode,))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_c = time.perf_counter() - t0
+    kids = []
+    for i, (out, err, rc) in enumerate(outs):
+        check(rc == 0 and "DP-CHILD " in out,
+              f"phase 31(c) process {i} failed (rc {rc}):\n{out[-2000:]}\n{err[-4000:]}")
+        kids.append(json.loads(out.split("DP-CHILD ")[1].splitlines()[0]))
+    g_a = grad_a.flatten().cpu().numpy().astype(np.float64)
+    gmax = np.abs(g_a).max()
+    for k in kids:
+        g = np.array(k["grad"])
+        k["rel_loss"] = abs(k["loss"] - loss_a.item()) / abs(loss_a.item())
+        k["grad_err"] = np.abs(g - g_a).max()
+    agree = kids[0]["loss"] == kids[1]["loss"] and kids[0]["grad"] == kids[1]["grad"]
+    print(f"[parallel] (c) two processes on {card}, backend " + " / ".join(k["backend"] for k in kids)
+          + " (explicit: NCCL refuses two ranks on one device), CUDA tensors passed to gloo's "
+          "all_reduce as they are: " + "; ".join(
+              f"process {k['pid']} rows {k['rows'][0]}-{k['rows'][1]} of {B_} on "
+              f"{k['device']}: {k['launches']} step and {k['launches_vjp']} VJP launches, step "
+              f"{k['seconds']:.2f} s (first call), loss relative error {k['rel_loss']:.3e}, max |d grad| "
+              f"{k['grad_err']:.3e} ({k['grad_err'] / gmax:.3e} of max|g|)" for k in kids)
+          + f"; the two agree bit for bit: {agree}; wall {wall_c:.1f} s")
+    for k in kids:
+        half = B_ // 2
+        check(k["backend"] == "gloo" and k["rows"] == [k["pid"] * half, (k["pid"] + 1) * half],
+              "phase 31(c): wrong group or batch")
+        check(k["launches"] == T_ and k["launches_vjp"] == T_, f"phase 31(c): expected {T_} launches")
+        check(k["rel_loss"] <= 1e-5 and k["grad_err"] <= 1e-5 * gmax,
+              "phase 31(c): the two-process result differs from the full batch")
+    check(agree, "phase 31(c): the two processes disagree")
+    print(f"[parallel] phase 31: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_one_process": launches_a[0], "launches_nccl_one_rank": launches_b[0],
+            "launches_gloo_two_process": [k["launches"] for k in kids],
+            "launches_vjp": {"one_process": launches_a[1], "nccl_one_rank": launches_b[1],
+                             "gloo_two_process": [k["launches_vjp"] for k in kids]},
+            "dp_ms": dp_ms[0], "bare_ms": bare_ms[0], "all_reduce_ms": ar_ms[0],
+            "device_share_step": T_ * kernel_ms / dp_ms[0],
+            "device_share_vjp": T_ * vjp_ms / dp_ms[0],
+            "step": step, "sb": sb, "tape": tape}
+
+
+def utils_phase(card, dp, m32, state, taus):
+    """Phase 32: a device trace of one rollout_fast inside a named scope,
+    in this process after phases 1-31 (device_trace checks that every
+    kernel launch it records has its kernel event), and a checkpoint
+    resume of phase 31's data-parallel Adam loop."""
+    import tempfile
+
+    from diffdart_tpu_torch.ops import fused_step as fs
+    from diffdart_tpu_torch.sim.fast import rollout_fast
+    from diffdart_tpu_torch.utils import restore_checkpoint, save_checkpoint
+    from diffdart_tpu_torch.utils.profile import device_trace, named_scope
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        rollout_fast(m32, state, taus)  # warm
+        torch.cuda.synchronize()
+        fs.KERNEL.launches = 0
+        with device_trace(tmp) as prof:
+            with named_scope("rollout_fast_T50"):
+                rollout_fast(m32, state, taus)
+        launches = fs.KERNEL.launches
+        size = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "fused_step_kernel" in e.get("name", "")]
+    kern_ms = sum(e.get("dur", 0) for e in kern) / 1e3
+    scope_cats = sorted({e.get("cat") for e in events if e.get("name") == "rollout_fast_T50"})
+    print(f"[utils] device_trace of rollout_fast (B={B}, T={T}, f32) in "
+          f"named_scope('rollout_fast_T50'), in this process after phases 1-31: a {size} byte Chrome "
+          f"trace; {prof.kernel_launches} kernel launches recorded (its closing kernel's included), "
+          f"each with its kernel event; "
+          f"{len(kern)} events named {sorted({e['name'] for e in kern})}, {kern_ms:.3f} ms of device "
+          f"time ({kern_ms / max(len(kern), 1):.4f} ms each); the scope's events in categories "
+          f"{scope_cats}; {launches} counted launches")
+    check(len(kern) == T and launches == T, f"expected {T} step-kernel events in the trace")
+    check("user_annotation" in scope_cats, "the trace does not name the scope")
+
+    step, sb, tape0 = dp["step"], dp["sb"], dp["tape"]
+
+    def fresh():
+        p = torch.nn.Parameter(tape0.clone())
+        return p, torch.optim.Adam([p], lr=0.05)
+
+    def run(p, opt, n):
+        losses = []
+        for _ in range(n):
+            loss, g = step(p.detach(), sb)
+            p.grad = g
+            opt.step()
+            losses.append(loss.item())
+        return losses
+
+    p, opt = fresh()
+    straight = run(p, opt, 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        pa, opta = fresh()
+        first = run(pa, opta, 3)
+        fname = save_checkpoint(tmp, {"tape": pa, "opt": opta.state_dict(), "step": 3}, step=3)
+        pb, optb = fresh()
+        ck = restore_checkpoint(fname, like={"tape": pb, "opt": optb.state_dict()})
+        on_card = ck["tape"].device.type == "cuda"
+        with torch.no_grad():
+            pb.copy_(ck["tape"])
+        optb.load_state_dict(ck["opt"])
+        second = run(pb, optb, 2)
+    same = bool(torch.equal(pb, p))
+    d = (pb - p).abs().max().item()
+    print(f"[utils] checkpoint resume of phase 31's data-parallel Adam loop (lr 0.05): losses "
+          f"{[f'{x:.6g}' for x in straight]} straight, {[f'{x:.6g}' for x in first + second]} with "
+          f"save after 3 ({os.path.basename(fname)}), restored on the card {on_card}; the tape after "
+          f"5 steps equal bit for bit: {same} (max |d| {d:.3e})")
+    check(on_card and ck["step"] == 3, "the checkpoint did not restore onto the card")
+    check(same and first + second == straight, "the resumed run differs from the straight run")
+    print(f"[utils] phase 32: {time.perf_counter() - t_phase:.1f} s")
+
+
+def viewer_phase(card, m32, state, taus):
+    """Phase 33: frames of a card rollout against the same q on the CPU,
+    then the WebSocket server streaming them to a raw-socket client."""
+    import base64
+    import socket
+    import struct
+    import threading
+
+    from diffdart_tpu_torch.dynamics.model import State
+    from diffdart_tpu_torch.models import half_cheetah
+    from diffdart_tpu_torch.sim.fast import rollout_fast
+    from diffdart_tpu_torch.viewer import GUIWebsocketServer, state_frame, trajectory_frames
+
+    t_phase = time.perf_counter()
+    T_ = taus.shape[0]
+    qs = []
+    st = state
+    with torch.no_grad():
+        for t in range(T_):
+            st = rollout_fast(m32, st, taus[t:t + 1])
+            qs.append(st.q[0])
+    qs = torch.stack(qs)
+
+    def units(fa_, fb_):
+        """Largest difference of two frame lists in units of the fifth
+        place (both round to 5 places; float32 values carry their own
+        representation error, so a one-unit flip reads up to ~1.01e-5)."""
+        return max(round(abs(a - b) * 1e5) for x, y in zip(fa_, fb_)
+                   for pa, pb in zip(x["poses"], y["poses"])
+                   for a, b in zip(pa["pos"] + pa["quat"], pb["pos"] + pb["quat"]))
+
+    trajectory_frames(m32, qs)  # warm
+    t0 = time.perf_counter()
+    card_frames = trajectory_frames(m32, qs)
+    ms_traj = 1e3 * (time.perf_counter() - t0)
+    m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
+    cpu_frames = trajectory_frames(m_cpu, qs.cpu())
+    n_diff = sum(a != b for x, y in zip(card_frames, cpu_frames)
+                 for pa, pb in zip(x["poses"], y["poses"])
+                 for a, b in zip(pa["pos"] + pa["quat"], pb["pos"] + pb["quat"]))
+    err = units(card_frames, cpu_frames)
+    one = units([state_frame(m32, qs[-1], t=0.1)], [state_frame(m_cpu, qs[-1].cpu(), t=0.1)])
+    print(f"[viewer] half-cheetah f32, env 0 of a card rollout (B={state.q.shape[0]}, T={T_}): "
+          f"trajectory_frames on the card {ms_traj:.2f} ms for {T_} frames (warm); against the same "
+          f"q on the CPU {n_diff} of {T_ * m32.ngeom * 7} numbers differ, by at most {err} unit(s) "
+          f"in the fifth place (limit 1); the last state_frame: {one}")
+    check(len(card_frames) == T_ and err <= 1 and one <= 1, "card frames differ from the CPU's")
+
+    srv = GUIWebsocketServer().serve(port=0, host="127.0.0.1")
+    msgs, errs = [], []
+
+    def reader(c):
+        buf = b""
+        try:
+            while len(msgs) < T_ + 1:
+                chunk = c.recv(65536)
+                if not chunk:
+                    break
+                buf += chunk
+                while len(buf) >= 2:
+                    n, off = buf[1] & 0x7F, 2
+                    if n == 126:
+                        n, off = struct.unpack("!H", buf[2:4])[0], 4
+                    elif n == 127:
+                        n, off = struct.unpack("!Q", buf[2:10])[0], 10
+                    if len(buf) < off + n:
+                        break
+                    msgs.append(json.loads(buf[off:off + n].decode()))
+                    buf = buf[off + n:]
+        except (OSError, ValueError) as e:
+            errs.append(repr(e))
+
+    connected = threading.Event()
+    srv.registerConnectionListener(connected.set)
+    try:
+        c = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
+        key = base64.b64encode(os.urandom(16)).decode()
+        c.sendall(("GET / HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                   f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+        check(b"101" in c.recv(4096), "no WebSocket handshake")
+        check(connected.wait(10), "the server did not register the client")
+        th = threading.Thread(target=reader, args=(c,), daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        for t in range(T_):
+            srv.renderWorld(m32, qs[t], t=t * float(m32.dt))
+        send_ms = 1e3 * (time.perf_counter() - t0)
+        th.join(timeout=30)
+        c.close()
+    finally:
+        srv.stop()
+    kinds = [x["kind"] for x in msgs]
+    streamed = [x for x in msgs if x["kind"] == "frame"]
+    err_s = units(streamed, card_frames) if streamed else 0
+    print(f"[viewer] GUIWebsocketServer on 127.0.0.1:{srv.port}: a raw-socket client in this process "
+          f"parsed {kinds.count('scene')} scene and {len(streamed)} frame messages ({errs or 'no error'}); "
+          f"renderWorld x {T_} from card states {send_ms:.1f} ms ({send_ms / T_:.2f} ms per frame); "
+          f"against trajectory_frames' at most {err_s} unit(s) in the fifth place")
+    check(not th.is_alive() and not errs, "the WebSocket client did not finish")
+    check(kinds == ["scene"] + ["frame"] * T_ and err_s <= 1,
+          "the stream is not the scene and the T frames")
+    print(f"[viewer] phase 33: {time.perf_counter() - t_phase:.1f} s")
+
+
+def bridge_phase(card, reset_counts):
+    """Phase 34: torch_bridge.timestep on cube_drop with 'lowrank_pallas',
+    float64, 20 steps on the card against the CPU port. Returns the sweep
+    launches of the card's chain."""
+    from diffdart_tpu_torch.models import cube_drop
+    from diffdart_tpu_torch.ops import pallas_lcp as P
+    from diffdart_tpu_torch.torch_bridge import timestep
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = cube_drop(dt=2e-3, half=0.1, friction=0.5, dtype=f64,
+                      device=dev).replace(contact_solver="lowrank_pallas")
+        q = m.neutral_q()
+        q[6] = 0.105
+        v0 = torch.tensor([0.3, -0.2, 0.1, 1.0, 0.2, 0.0], dtype=f64, device=dev, requires_grad=True)
+        tau = torch.zeros(6, dtype=f64, device=dev)
+        v = v0
+        reset_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            q, v = timestep(m, q, v, tau)
+        (q[4] + q[5] + q[6]).backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (q.detach().cpu(), v.detach().cpu(), v0.grad.cpu(), P.KERNEL_SINGLE.launches,
+                    time.perf_counter() - t0)
+    (qc, vc_, gc, lc, sc_), (qh, vh, gh, lh, sh) = out["cuda"], out["cpu"]
+    dq, dv = (qc - qh).abs().max().item(), (vc_ - vh).abs().max().item()
+    rel_g = ((gc - gh).abs().max() / gh.abs().max()).item()
+    print(f"[bridge] torch_bridge.timestep, cube_drop f64 'lowrank_pallas', 20 steps landing on its "
+          f"contacts (z 0.105, v0 {[0.3, -0.2, 0.1, 1.0, 0.2, 0.0]}): {lc} jacobi_sweeps_single launches "
+          f"on the card ({lh} on the CPU); card vs CPU max |dq| {dq:.3e}, |dv| {dv:.3e} (limit 1e-9); "
+          f"d(q4+q5+q6)/dv0 {[f'{x:.6g}' for x in gc.tolist()]}, relative difference {rel_g:.3e} "
+          f"(limit 1e-8); 20 steps + backward {1e3 * sc_:.1f} ms on the card, {1e3 * sh:.1f} ms on "
+          f"the CPU")
+    check(lc == 20 and lh == 0, f"expected 20 sweep launches on the card, got {lc}")
+    check(dq <= 1e-9 and dv <= 1e-9, "the bridge's card step differs from the CPU's")
+    check(bool(torch.isfinite(gc).all()) and rel_g <= 1e-8, "the bridge's card gradient differs")
+    print(f"[bridge] phase 34: {time.perf_counter() - t_phase:.1f} s")
+    return lc
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # Kineto stops CUPTI after every profiler trace (phases 23, 26 and 32
+    # trace): a CUPTI left running drifts from the host clock as the process
+    # ages and its traces lose kernel events (utils/profile.py).
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    if sys.argv[1:] == ["--dp-child"]:
+        return dp_child()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2362,6 +2835,12 @@ def main():
     # ---- 30. loaders-world: scene files, the World, goldens, IK, the pivot oracle ----
     s10 = loaders_world_phase(card, reset_counts)
 
+    # ---- 31-34. data-parallel BPTT, utils, the viewer, the bridge ----
+    dp = parallel_phase(card, reset_counts, kernel_ms, vjp_ms)
+    utils_phase(card, dp, m32, state, taus)
+    viewer_phase(card, m32, state, taus)
+    launches_bridge = bridge_phase(card, reset_counts)
+
     # ---- kernel line ----
     m_cpu = half_cheetah(dt=2e-3, dtype=torch.float32, device="cpu")
     one = [x[:, :1].cpu() for x in (qs, vs, ts)]
@@ -2415,7 +2894,13 @@ def main():
           "slice9": {k: s9[k] for k in (
               "launches_convex_rollout", "launches_hybrid_fallback", "launches_pair_budget",
               "launches_catapult_iter", "launches_jumpworm_ilqr", "shapes")},
-          "launches_native_oracle": s10["launches_native_oracle"]}))]
+          "launches_native_oracle": s10["launches_native_oracle"],
+          "launches_bridge": launches_bridge}))]
+    parallel = {"model": f"half-cheetah, B = {DP_B} (2 x {DP_B // 2} in two processes), T = {DP_T}",
+                "launches_per_process": {k: dp[f"launches_{k}"] for k in (
+                    "one_process", "nccl_one_rank", "gloo_two_process")},
+                "dp_step_ms": dp["dp_ms"], "bare_bptt_ms": dp["bare_ms"],
+                "all_reduce_ms": dp["all_reduce_ms"]}
     print(json.dumps({"kernels": [{
         "name": "fused_step",
         "design": "redesigned: one warp per env, the LCP in shared memory, its solve split across "
@@ -2433,6 +2918,7 @@ def main():
         "convex": {"model": "octahedron, 4 hull slots, D = 12, B = 4096",
                    **{k: cvx[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "rollout_ms")}},
+        "parallel": {**parallel, "device_ms_share": dp["device_share_step"]},
     }, {
         "name": "fused_step_vjp",
         "route": "cuda",
@@ -2450,6 +2936,8 @@ def main():
                    "plain_ms": cvx["plain_vjp_ms"], "bound_ms": cvx["bound_vjp_ms"],
                    "bound_by": cvx["bound_vjp_by"], "tape_nodes": cvx["tape_nodes"],
                    "bptt_ms": cvx["bptt_ms"]},
+        "parallel": {**parallel, "launches_per_process": dp["launches_vjp"],
+                     "device_ms_share": dp["device_share_vjp"]},
     }, *sweep_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -763,3 +763,162 @@ def test_world_on_the_card_matches_the_cpu():
             ends.append((w.getPositions().cpu(), w.getVelocities().cpu()))
         assert (ends[0][0] - ends[1][0]).abs().max() <= 1e-10, fname
         assert (ends[0][1] - ends[1][1]).abs().max() <= 1e-10, fname
+
+
+def _dp_cheetah(B, T, seed=31):
+    """The data-parallel BPTT of chip_smoke phase 31 at a small size: the
+    half-cheetah, float32, a shared control tape (T, nv) as the replicated
+    params, per-env noise 0.1 N(0, 1) in the batch, per-env loss
+    q_T[:, 1]^2 + 1e-4 mean(tau^2)."""
+    m = half_cheetah(dt=2e-3, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"state": State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda")),
+             "noise": 0.1 * torch.randn(B, T, m.nv, device="cuda", generator=g)}
+
+    def per_env(tape, b):
+        taus = (tape[None] + b["noise"]).transpose(0, 1)
+        final = rollout_fast(m, b["state"], taus)
+        return final.q[:, 1] ** 2 + 1e-4 * (taus**2).mean((0, 2))
+
+    return m, batch, per_env, torch.zeros(T, m.nv, device="cuda")
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_on_the_card_equals_plain_bptt():
+    """make_mesh(1) on the card: data_parallel_grad launches each fused
+    kernel T times and gives the plain mean loss and its gradient bit for
+    bit (B a power of two, so the division by B is exact)."""
+    from diffdart_tpu_torch.parallel import data_parallel_grad, make_mesh, shard_batch
+
+    _cuda()
+    B, T = 512, 10
+    _, batch, per_env, tape = _dp_cheetah(B, T)
+    mesh = make_mesh(1)
+    assert mesh.devices == (torch.device("cuda", 0),)
+    n0, g0 = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    loss, grad = data_parallel_grad(per_env, mesh)(tape, shard_batch(mesh, batch))
+    torch.cuda.synchronize()
+    assert fs.KERNEL.launches == n0 + T and fs.VJP_KERNEL.launches == g0 + T
+    x = tape.clone().requires_grad_(True)
+    ref = per_env(x, batch).mean()
+    ref.backward()
+    assert torch.equal(loss, ref.detach()) and torch.equal(grad, x.grad)
+    assert grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_device_trace_records_every_step_kernel(tmp_path):
+    """device_trace around rollout_fast on the card, in this test session's
+    process: T step-kernel events by name, each launch with its kernel
+    event (device_trace raises otherwise), and the scope."""
+    import json
+
+    from diffdart_tpu_torch.utils.profile import device_trace, named_scope
+
+    _cuda()
+    B, T = 256, 10
+    m = half_cheetah(dt=2e-3, dtype=torch.float32, device="cuda")
+    state = State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
+    taus = 0.1 * torch.randn(T, B, m.nv, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        rollout_fast(m, state, taus)
+        n0 = fs.KERNEL.launches
+        with device_trace(str(tmp_path)) as prof:
+            with named_scope("rollout"):
+                rollout_fast(m, state, taus)
+    assert fs.KERNEL.launches == n0 + T and prof.kernel_launches >= T
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(e.get("cat") == "kernel" and "fused_step_kernel" in e["name"] for e in events) == T
+    assert any(e.get("name") == "rollout" and e.get("cat") == "user_annotation" for e in events)
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card(tmp_path):
+    """A data-parallel Adam loop on the card: 3 steps, save, restore on the
+    card, 2 steps equal 5 straight steps bit for bit."""
+    from diffdart_tpu_torch.parallel import data_parallel_grad, make_mesh, shard_batch
+    from diffdart_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    _cuda()
+    _, batch, per_env, tape0 = _dp_cheetah(256, 8)
+    mesh = make_mesh(1)
+    step = data_parallel_grad(per_env, mesh)
+    sb = shard_batch(mesh, batch)
+
+    def fresh():
+        p = torch.nn.Parameter(tape0.clone())
+        return p, torch.optim.Adam([p], lr=0.05)
+
+    def run(p, opt, n):
+        for _ in range(n):
+            _, g = step(p.detach(), sb)
+            p.grad = g
+            opt.step()
+
+    p, opt = fresh()
+    run(p, opt, 5)
+    pa, opta = fresh()
+    run(pa, opta, 3)
+    fname = save_checkpoint(str(tmp_path / "ck"), {"tape": pa, "opt": opta.state_dict()}, step=3)
+    pb, optb = fresh()
+    ck = restore_checkpoint(fname, like={"tape": pb, "opt": optb.state_dict()})
+    assert ck["tape"].device == pb.device
+    with torch.no_grad():
+        pb.copy_(ck["tape"])
+    optb.load_state_dict(ck["opt"])
+    run(pb, optb, 2)
+    assert torch.equal(pb, p) and p.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_frame_from_a_card_state_matches_the_cpu():
+    """state_frame and trajectory_frames of the half-cheetah from positions
+    on the card equal those from the same positions on the CPU within one
+    unit in the fifth place (both round to 5 places; a value on a rounding
+    boundary may round either way)."""
+    from diffdart_tpu_torch.viewer import state_frame, trajectory_frames
+
+    _cuda()
+    frames = []
+    for dev in ("cuda", "cpu"):
+        m = half_cheetah(dt=2e-3, dtype=torch.float64, device=dev)
+        qs = cheetah_init_q(m).repeat(6, 1) + 0.3 * torch.tensor(
+            np.random.RandomState(2).randn(6, m.nq), device=dev)
+        frames.append([state_frame(m, qs[0], t=0.1)] + trajectory_frames(m, qs, stride=2))
+    for a, b in zip(*frames):
+        assert a["t"] == b["t"] and len(a["poses"]) == len(b["poses"])
+        for pa, pb in zip(a["poses"], b["poses"]):
+            d = np.abs(np.subtract(pa["pos"] + pa["quat"], pb["pos"] + pb["quat"]))
+            assert np.round(d * 1e5).max() <= 1
+
+
+@pytest.mark.cuda
+def test_bridge_timestep_with_the_sweep_kernel_matches_the_cpu():
+    """torch_bridge.timestep on cube_drop with contact_solver='lowrank_pallas',
+    float64, 20 steps, landing on its contacts: one sweep-kernel launch per
+    step on the card, q and v within 1e-9 of the CPU's, and the chain's
+    gradient within 1e-8 relative."""
+    from diffdart_tpu_torch.models import cube_drop
+    from diffdart_tpu_torch.torch_bridge import timestep
+
+    _cuda()
+    out = []
+    for dev in ("cuda", "cpu"):
+        m = cube_drop(dt=2e-3, half=0.1, friction=0.5, dtype=torch.float64,
+                      device=dev).replace(contact_solver="lowrank_pallas")
+        q = m.neutral_q()
+        q[6] = 0.105
+        vx = torch.tensor(1.0, dtype=torch.float64, device=dev, requires_grad=True)
+        v = torch.cat([torch.zeros(3, dtype=torch.float64, device=dev), vx.reshape(1),
+                       torch.zeros(2, dtype=torch.float64, device=dev)])
+        tau = torch.zeros(6, dtype=torch.float64, device=dev)
+        n0 = P.KERNEL_SINGLE.launches
+        for _ in range(20):
+            q, v = timestep(m, q, v, tau)
+        launches = P.KERNEL_SINGLE.launches - n0
+        q[4].backward()
+        out.append((q.detach().cpu(), v.detach().cpu(), vx.grad.item(), launches))
+    assert out[0][3] == 20 and out[1][3] == 0
+    assert (out[0][0] - out[1][0]).abs().max() <= 1e-9 and (out[0][1] - out[1][1]).abs().max() <= 1e-9
+    assert abs(out[0][2] - out[1][2]) <= 1e-8 * abs(out[1][2])
