@@ -1,0 +1,11 @@
+"""Kernel 2's (the step's VJP) share of its roofline (harness/roofline.py)."""
+from portbench.harness.roofline import share_pct
+
+UNIT = "%"
+LAYER = "fused step kernels (ops/csrc/fused_step.cu)"
+MOVES = "bptt_env_steps_per_s"
+KERNELS = r"\bfused_step_vjp_kernel\b"
+
+
+def read(ctx):
+    return share_pct(ctx, "fused_step_vjp_kernel", KERNELS)
