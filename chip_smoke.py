@@ -63,12 +63,18 @@ falls back to the CPU or to the plain version:
                  the kernels (dtau less the regulariser's own gradient) is
                  non-zero on >= 99% of envs; then loss + backward is timed
                  five times with CUDA events (median, min, max; fwd+grad
-                 env-steps/s of the median). The VJP kernel's ms per launch
-                 is its device time (its C launcher called back to back on
-                 prepared pointers, see vjp_device_ms), with the device
-                 times of its counting launch and of its recording without
-                 the sweep; the wrapper's host time per call is printed
-                 beside it.
+                 env-steps/s of the median); none of the T VJP launches
+                 solves the LCP again (VJP_KERNEL.self_solved stays 0: each
+                 takes the solution its step's forward launch saved). The
+                 VJP kernel's ms per launch is its device time (its C
+                 launcher called back to back on prepared pointers, see
+                 vjp_device_ms) at kernel 1's saved solution, as the BPTT
+                 launches it, with the device times of its counting launch
+                 and of its recording without the sweep; the same three
+                 solving the LCP themselves (the serial solve, as every
+                 launch did before the forward saved its solution) beside
+                 them; the wrapper's host time per call is printed beside
+                 it.
  10. bptt-reference -- float64, B = 256, T = 10: the gradient of
                  mean(q_T[:, 1]^2) alone (all of it through the kernels)
                  against the same through the plain version, >= 99% of envs
@@ -399,18 +405,23 @@ def bare_ms(fn, args, reps):
     return start.elapsed_time(end) / reps, host
 
 
-def step_device_ms(lib, desc, D, q, v, tau, front_only=False, reps=50, sized=None):
-    """(device ms, host ms, (q', v')) per launch of the step kernel through
-    its C launcher (bare_ms). front_only: the launch that stops after the
-    front end (v' is then v*, q' unwritten). D and `sized` (default: v's
-    nv) size the shared memory per env: at or above the model's D and nv."""
+def step_device_ms(lib, desc, D, q, v, tau, front_only=False, reps=50, sized=None, solution=False):
+    """(device ms, host ms, (q', v', sol)) per launch of the step kernel
+    through its C launcher (bare_ms). front_only: the launch that stops
+    after the front end (v' is then v*, q' unwritten). D and `sized`
+    (default: v's nv) size the shared memory per env: at or above the
+    model's D and nv. solution: the launch that also writes each env's
+    detached LCP solution into sol, (B, D + 1), as the BPTT's forward does
+    (else sol is None)."""
     fn = lib.fused_step_f32 if q.dtype == torch.float32 else lib.fused_step_f64
     qo, vo = torch.empty_like(q), torch.empty_like(v)
-    args = (*(x.data_ptr() for x in (*desc, q, v, tau, qo, vo)), q.shape[1], D,
+    sol = torch.empty((q.shape[1], D + 1), dtype=q.dtype, device=q.device) if solution else None
+    args = (*(x.data_ptr() for x in (*desc, q, v, tau, qo, vo)),
+            None if sol is None else sol.data_ptr(), q.shape[1], D,
             v.shape[0] if sized is None else sized, int(front_only),
             torch.cuda.current_stream().cuda_stream)
     ms, host = bare_ms(fn, args, reps)
-    return ms, host, (qo, vo)
+    return ms, host, (qo, vo, sol)
 
 
 def sweep_device_ms(lib, A, b, lo, hi, mu, fidx, iters, reps=200, copies=1):
@@ -470,11 +481,14 @@ def sweep_line(r, bound32, bound64):
             f"{r['issue']:.4f} ms (cold set {r['issue_cold']:.4f}) on the host")
 
 
-def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
+def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole", solution=None):
     """(device ms, host ms) per launch of the VJP kernel (bare_ms), with a
-    tape of `cap` nodes per env allocated once. part='whole' is the launch
-    the BPTT makes; 'record' records the tape and stops (dq null: no sweep);
-    'count' is the counting launch (no tape: the recording's arithmetic)."""
+    tape of `cap` nodes per env allocated once. part='whole' is the whole
+    launch; 'record' records the tape and stops (dq null: no sweep);
+    'count' is the counting launch (no tape: the recording's arithmetic).
+    solution: the forward's detached LCP solution (step_device_ms with
+    solution=True), which the BPTT's launches take; None: the VJP solves
+    the LCP itself."""
     from diffdart_tpu_torch.ops.fused_step import tape_bytes
 
     fn = lib.fused_step_vjp_f32 if q.dtype == torch.float32 else lib.fused_step_vjp_f64
@@ -483,9 +497,10 @@ def vjp_device_ms(lib, desc, q, v, tau, gq, gv, cap, reps=20, part="whole"):
         outs[0] = None
     tape = torch.empty(tape_bytes(q.dtype, cap, q.shape[1]), dtype=torch.uint8, device=q.device)
     status = torch.zeros(2, dtype=torch.int32, device=q.device)
-    args = (*(x.data_ptr() for x in (*desc, q, v, tau, gq, gv)),
+    sol, sol_w = (None, 0) if solution is None else (solution.data_ptr(), solution.shape[1])
+    args = (*(x.data_ptr() for x in (*desc, q, v, tau)), sol, *(x.data_ptr() for x in (gq, gv)),
             *(None if x is None else x.data_ptr() for x in outs), None, None,
-            None if part == "count" else tape.data_ptr(), status.data_ptr(), q.shape[1], cap,
+            None if part == "count" else tape.data_ptr(), status.data_ptr(), q.shape[1], cap, sol_w,
             torch.cuda.current_stream().cuda_stream)
     out = bare_ms(fn, args, reps)
     check(int(status[1]) == 0, "the VJP kernel's tape overflowed")
@@ -1433,9 +1448,10 @@ def convex_fused_phase(card, lib, reset_counts, vmap_ms):
     desc = step32.descriptor(q.device, f32)
     nodes = fs.VJP_KERNEL.tape_nodes(*desc, q, v, tau)
     cap = step32.tape_capacity(q, v, tau)
-    kernel_ms, issue_ms, _ = step_device_ms(lib, desc, D, q, v, tau)
+    kernel_ms, issue_ms, (_, _, sol) = step_device_ms(lib, desc, D, q, v, tau, solution=True)
     ones_q, ones_v = torch.ones_like(q), torch.ones_like(v)
-    vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc, q, v, tau, ones_q, ones_v, cap)
+    vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc, q, v, tau, ones_q, ones_v, cap, solution=sol)
+    vjp_solving_ms = vjp_device_ms(lib, desc, q, v, tau, ones_q, ones_v, cap)[0]
     with torch.no_grad():
         plain_ms = cuda_ms(lambda: step32.plain(q, v, tau), reps=3)
 
@@ -1455,15 +1471,17 @@ def convex_fused_phase(card, lib, reset_counts, vmap_ms):
     bound_ms, bound_vjp_ms = 1e3 * max(tb, to), 1e3 * max(tvb, tvo)
     print(f"[convex-fused] timing on {card}, B={Bo} f32: step kernel {kernel_ms:.4f} ms/launch on the "
           f"device (issuing {issue_ms:.4f} ms), bound {bound_ms:.3e} ms ({ops} ops/env-step, {nbytes} "
-          f"bytes), plain version {plain_ms:.2f} ms; VJP kernel {vjp_ms:.4f} ms/launch (issuing "
-          f"{vjp_issue_ms:.4f} ms), bound {bound_vjp_ms:.3e} ms ({ops_v} ops/env-step, {nbytes_v} "
+          f"bytes), plain version {plain_ms:.2f} ms; VJP kernel at the saved LCP solution {vjp_ms:.4f} "
+          f"ms/launch (issuing {vjp_issue_ms:.4f} ms; solving the LCP itself {vjp_solving_ms:.4f} ms), "
+          f"bound {bound_vjp_ms:.3e} ms ({ops_v} ops/env-step, {nbytes_v} "
           f"bytes), plain VJP {plain_vjp_ms:.2f} ms; tape {nodes} nodes per env (capacity {cap}), "
           f"{fs.tape_bytes(f32, nodes, Bo) / 1e6:.3f} MB per launch")
     check(issue_ms < kernel_ms and vjp_issue_ms < vjp_ms, "the convex kernels' timing waited on the host")
     return {"launches": launches, "launches_vjp": launches_vjp, "max_abs_err": f32_err,
             "vjp_max_abs_err_f64": vjp_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if to >= tb else "bytes",
-            "vjp_ms": vjp_ms, "plain_vjp_ms": plain_vjp_ms, "bound_vjp_ms": bound_vjp_ms,
+            "vjp_ms": vjp_ms, "vjp_solving_ms": vjp_solving_ms, "plain_vjp_ms": plain_vjp_ms,
+            "bound_vjp_ms": bound_vjp_ms,
             "bound_vjp_by": "operations" if tvo >= tvb else "bytes", "tape_nodes": nodes,
             "rollout_ms": roll_ms[0], "bptt_ms": bptt_ms[0]}
 
@@ -2211,7 +2229,7 @@ def main():
         desc32 = step32.descriptor(qs.device, torch.float32)
         wrapped_ms = cuda_ms(lambda: step32(qs, vs, ts), reps=50)
         kernel_ms, kernel_issue_ms, _ = step_device_ms(lib, desc32, D, qs, vs, ts)
-        front_ms, _, (_, vstar) = step_device_ms(lib, desc32, D, qs, vs, ts, front_only=True)
+        front_ms, _, (_, vstar, _) = step_device_ms(lib, desc32, D, qs, vs, ts, front_only=True)
         plain_ms = cuda_ms(lambda: step32.plain(qs, vs, ts), reps=3)
         roll_ms = cuda_ms(lambda: rollout_fast(m32, state, taus), reps=3)
 
@@ -2317,10 +2335,11 @@ def main():
         loss.backward()
         return taus_g.grad
 
-    fs.KERNEL.launches = fs.VJP_KERNEL.launches = 0
+    fs.KERNEL.launches = fs.VJP_KERNEL.launches = fs.VJP_KERNEL.self_solved = 0
     dtaus = bptt(m32, state, taus)
     torch.cuda.synchronize()
     launches_fwd, launches_vjp = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    self_solved = fs.VJP_KERNEL.self_solved
     # the regulariser's gradient by itself: exactly what autograd adds to the
     # part through the kernels, so the difference is that part (0 if the
     # kernels gave 0)
@@ -2329,24 +2348,35 @@ def main():
     d_dyn = dtaus - g_reg
     share_dyn = (d_dyn != 0).any(-1).any(0).double().mean().item()
     print(f"[bptt] rollout_fast + backward B={B} T={T} f32: {launches_fwd} step and {launches_vjp} "
-          f"VJP launches; |dtau| max {dtaus.abs().max().item():.3e}, finite "
+          f"VJP launches, {self_solved} of them solving the LCP again; |dtau| max {dtaus.abs().max().item():.3e}, finite "
           f"{bool(torch.isfinite(dtaus).all())}; part through the kernels: |dtau| max "
           f"{d_dyn.abs().max().item():.3e}, non-zero on {100 * share_dyn:.2f}% of envs "
           f"(regulariser's |dtau| max {g_reg.abs().max().item():.3e})")
     check(launches_fwd == T and launches_vjp == T,
           f"expected {T} step and {T} VJP launches on the BPTT path, got {launches_fwd}, {launches_vjp}")
+    check(self_solved == 0, f"{self_solved} VJP launches of the BPTT solved the LCP again")
     check(bool(torch.isfinite(dtaus).all()) and share_dyn >= 0.99, "bad BPTT gradient")
     bptt(m32, state, taus)
     bptt_runs = sorted(cuda_ms(lambda: bptt(m32, state, taus), reps=1) for _ in range(5))
     bptt_ms = bptt_runs[2]
     sps_grad = B * T / (bptt_ms * 1e-3)
     gqs, gvs = torch.ones_like(qs), torch.ones_like(vs)
-    vjp_ms, vjp_issue_ms = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32)
-    record_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="record")
-    count_ms, _ = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part="count")
+    # the VJP's parts at the forward's saved LCP solution (the BPTT's launch),
+    # then solving the LCP itself (every launch before the saved solution)
+    with torch.no_grad():
+        _, _, (_, _, sol32) = step_device_ms(lib, desc32, D, qs, vs, ts, reps=1, solution=True)
+    parts = {}
+    for name, sol in (("saved", sol32), ("solving", None)):
+        for part in ("whole", "record", "count"):
+            parts[name, part] = vjp_device_ms(lib, desc32, qs, vs, ts, gqs, gvs, cap32, part=part,
+                                              solution=sol)
+    vjp_ms, vjp_issue_ms = parts["saved", "whole"]
+    record_ms, count_ms = parts["saved", "record"][0], parts["saved", "count"][0]
+    solving_ms, solving_record_ms, solving_count_ms = (parts["solving", p][0]
+                                                       for p in ("whole", "record", "count"))
     shared = torch.zeros(2, dtype=torch.int32, device="cuda")  # as a backward pass shares one
-    vjp_wrap_ms = host_ms(lambda: fs.VJP_KERNEL(*desc32, qs, vs, ts, gqs, gvs, cap32, status=shared),
-                          reps=10)
+    vjp_wrap_ms = host_ms(lambda: fs.VJP_KERNEL(*desc32, qs, vs, ts, gqs, gvs, cap32, status=shared,
+                                                solution=sol32), reps=10)
     fs.check_tape(shared, cap32)
 
     def plain_vjp():
@@ -2354,12 +2384,16 @@ def main():
         torch.autograd.grad(step32.plain(*xs), xs, (gqs, gvs))
 
     plain_vjp_ms = cuda_ms(plain_vjp, reps=1)
-    print(f"[bptt] timing on {card}: VJP kernel {vjp_ms:.4f} ms/launch on the device (issuing one "
-          f"launch {vjp_issue_ms:.4f} ms on the host; one wrapper call as the backward pass makes it "
-          f"{vjp_wrap_ms:.4f} ms of host time); its parts on the device: counting launch (the "
-          f"recording's arithmetic, no tape) {count_ms:.4f} ms, recording with its tape, no sweep "
-          f"{record_ms:.4f} ms, so the tape's stores {record_ms - count_ms:.4f} ms and the sweep "
-          f"{vjp_ms - record_ms:.4f} ms; loss + backward median {bptt_ms:.3f} ms (min "
+    print(f"[bptt] timing on {card}: VJP kernel at the saved LCP solution {vjp_ms:.4f} ms/launch on "
+          f"the device (issuing one launch {vjp_issue_ms:.4f} ms on the host; one wrapper call as the "
+          f"backward pass makes it {vjp_wrap_ms:.4f} ms of host time); its parts on the device: "
+          f"counting launch (the recording's arithmetic, no tape) {count_ms:.4f} ms, recording with "
+          f"its tape, no sweep {record_ms:.4f} ms, so the tape's stores {record_ms - count_ms:.4f} ms "
+          f"and the sweep {vjp_ms - record_ms:.4f} ms; solving the LCP itself: whole {solving_ms:.4f}, "
+          f"recording {solving_record_ms:.4f}, counting {solving_count_ms:.4f} ms, so the serial "
+          f"solve {solving_count_ms - count_ms:.4f} ms "
+          f"({100 * (solving_count_ms - count_ms) / solving_count_ms:.1f}% of the counting launch); "
+          f"loss + backward median {bptt_ms:.3f} ms (min "
           f"{bptt_runs[0]:.3f}, max {bptt_runs[-1]:.3f}, 5 runs) = {sps_grad:.6g} fwd+grad "
           f"env-steps/s; plain VJP (forward with graph + backward) {plain_vjp_ms:.2f} ms/step "
           f"(context only)")

@@ -20,19 +20,25 @@
 // tape. Replaces the Pallas TPU kernel `_bwd_kernel` of
 // diffdart_tpu/ops/pallas_step.py:60, which is jax.vjp of the same tile step
 // with the forward recomputed in the kernel. The VJP of one step is
-// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau). Each thread runs the
-// step's three stages once on Adj<S> values (env_front, the serial
-// lcp_solve on primal values, env_back with the gradient attachment): every
-// elementary operation appends a node
+// (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau). Each thread records
+// the step once on Adj<S> values, env_front and then env_back with the
+// gradient attachment, at the step's detached LCP solution (`best` and its
+// residual, which record nothing). That solution is kernel 1's: a
+// differentiable forward launch writes it (D + 1 values per env),
+// FusedStepFn saves it beside (q, v, tau), and the VJP reads it, so the
+// backward pass does not solve the LCP again. A launch given none (a direct
+// call, the counting launch) solves it itself with the serial lcp_solve,
+// bit for bit the warp's; ops/fused_step.py counts those launches
+// (VJP_KERNEL.self_solved). Every elementary operation appends a node
 // (its operands' node indices and the partials of torch's backward formula)
 // to the env's tape in device memory. The thread then seeds the adjoints of
 // q', v' with gq, gv, sweeps the nodes from last to first, adding each
 // node's adjoint times its partials into its operands' adjoints, and reads
 // dq, dv, dtau from the K = nq + 2 nv leaf nodes. The gradient is taken of
-// the very code kernel 1 runs (the same env_front and env_back, and a solve
-// whose warp version equals the serial one bit for bit, so the recording's
-// primal is kernel 1's output bit for bit): the two cannot drift apart, and
-// nothing of the physics is written twice. The recorded operations are the
+// the very code kernel 1 runs (the same env_front and env_back at kernel
+// 1's own solution, so the recording's primal is kernel 1's output bit for
+// bit): the two cannot drift apart, and nothing of the physics is written
+// twice. The recorded operations are the
 // plain version's, in its order and with its constant folding
 // (ops/tile.py), and the sweep runs them in the order torch's engine runs
 // the plain version's backward (highest sequence number first), so the
@@ -66,9 +72,9 @@
 // pivoting), v' = v* + Minv J^T lam and the position update.
 //
 // Gradient semantics (sim/tilestep.py:_tile_lcp of both packages): the
-// sweeps and polish passes are stop-gradient, so the recording runs them on
-// primal values only (they record nothing). It then runs what kernel 1
-// skips: a probe pass at `best` (primal) whose finiteness and drift decide
+// sweeps and polish passes are stop-gradient, so the recording takes their
+// result as a primal value (kernel 1's, or the serial solve's), and records
+// nothing of them. It then runs what kernel 1 skips: a probe pass at `best` (primal) whose finiteness and drift decide
 // `ok`, and one more Woodbury pass on the recorded J, b and M at
 // `ok ? best : 0`, whose adjoint is the implicit-function-theorem gradient
 // of lam; the value stays `best` (straight_through), and envs that are not
@@ -101,10 +107,11 @@
 // now what bounds kernel 1: a chain of dependent operations on one lane,
 // which more warps per SM do not shorten, so its next step is to share the
 // front end's work across the lanes (PERF.md). The VJP kernel is one
-// thread per env: its recording runs the same three stages on 8-byte Adj
-// values with the serial solve and stores the tape, written once and read
-// once (2 x 593 MB at B = 4096, 0.35 ms at 3.35 TB/s: the floor of this
-// design, not of the work). The sweep hides what latency it can with one
+// thread per env: its recording runs the front and back ends on 8-byte Adj
+// values at the solution kernel 1's warp saved (a solve on one thread per
+// env, one warp per SM, cost it about a quarter of the recording) and
+// stores the tape, written once and read once (2 x 593 MB at B = 4096,
+// 0.35 ms at 3.35 TB/s: the floor of this design, not of the work). The sweep hides what latency it can with one
 // warp per SM: it loads SWEEP_CHUNK nodes' records and adjoints at once and
 // adds into earlier chunks' adjoints by reductions it does not wait for.
 // Both kernels state their times beside the bound in PERF.md.
@@ -1351,8 +1358,11 @@ HD void env_front(const DescI& I, const DescF<S>& F, const V* __restrict__ q,
 // The detached solve (stop-gradient), serial: scaling, phased Jacobi
 // sweeps from lam = 0, guarded Woodbury polish passes, on primal values.
 // Writes the best iterate to `best` and returns its natural-map residual.
+// The VJP runs it only when no forward solution is handed in (env_vjp): a
+// function of its own on the card, so that the recording's registers are
+// allocated without it.
 template <typename V, typename S>
-HD S lcp_solve(const DescI& I, const Front<V, S>& f, S* best) {
+HD_NOINLINE S lcp_solve(const DescI& I, const Front<V, S>& f, S* best) {
   const Lcp<V, S>& lcp = f.lcp;
   const int D = lcp.D, nv = lcp.nv;
 
@@ -1773,11 +1783,16 @@ HD S lcp_solve_warp(const DescI& I, const Front<S, S>& f, const WarpScratch<S>& 
 // bytes, which also holds lane 0's inputs and the front end's working
 // arrays (in local memory a lone lane's words would sit 128 bytes apart,
 // one cache sector each). front_only: stop after env_front and write v* to v_out, q_out
-// untouched (the front end's share of the time).
+// untouched (the front end's share of the time). sol, when given, receives
+// the detached solve's result, env-major (B, D + 1): row e holds `best`,
+// then `best_res`, element i written by lane i % 32, so a warp's stores
+// cover one contiguous row (nothing when D = 0). The VJP reads it back
+// instead of solving again.
 template <typename S>
 HD void env_fwd(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
                 const S* __restrict__ v_in, const S* __restrict__ tau_in, S* __restrict__ q_out,
-                S* __restrict__ v_out, int B, int e, unsigned char* sh, bool front_only) {
+                S* __restrict__ v_out, S* __restrict__ sol, int B, int e, unsigned char* sh,
+                bool front_only) {
   const int nq = I.nq, nv = I.nv;
   Front<S, S>& f = *reinterpret_cast<Front<S, S>*>(sh);
   WarpScratch<S> s;
@@ -1796,6 +1811,12 @@ HD void env_fwd(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
   });
   if (front_only) return;
   const S best_res = lcp_solve_warp<S>(I, f, s);
+  const int D = I.D;
+  if (sol != nullptr && D > 0)
+    lanes([&](int lane) {
+      S* row = sol + (int64_t)e * (D + 1);
+      for (int i = lane; i <= D; i += WARP) row[i] = i < D ? s.best[i] : best_res;
+    });
   lane0([&] {
     S qn[MAX_NQ], vn[MAX_NV];
     env_back<S, S, false>(I, F, q, f, s.best, best_res, qn, vn);
@@ -1804,11 +1825,13 @@ HD void env_fwd(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
   });
 }
 
-// The VJP kernel's per-env work: record the step's three stages on Adj
-// values (the serial solve between them records nothing; the K =
-// nq + 2 nv inputs are the tape's first K nodes), seed the adjoints of the
-// outputs with (gq, gv), sweep the tape from its last node to its first, and
-// read (dq | dv | dtau) from the K leaves. `status` gets the largest node
+// The VJP kernel's per-env work: record the step's stages on Adj values
+// (the K = nq + 2 nv inputs are the tape's first K nodes), seed the
+// adjoints of the outputs with (gq, gv), sweep the tape from its last node
+// to its first, and read (dq | dv | dtau) from the K leaves. Between
+// env_front and env_back sits the detached LCP solution, which records
+// nothing: read from `sol` (kernel 1's row of the env, (B, D + 1)) when
+// given, else solved here by the serial lcp_solve, bit for bit the same. `status` gets the largest node
 // count of any env (atomic max) and, where an env needs more nodes than
 // `cap`, the overflow flag; that env then writes nothing. With tape == null
 // the launch only counts; with dq == null it records the tape and stops
@@ -1875,7 +1898,8 @@ HD_NOINLINE void sweep(const Node<S>* __restrict__ nodes, S* __restrict__ adj, i
 template <typename S>
 HD void env_vjp(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
                 const S* __restrict__ v_in, const S* __restrict__ tau_in,
-                const S* __restrict__ gq, const S* __restrict__ gv, S* __restrict__ dq,
+                const S* __restrict__ sol, const S* __restrict__ gq, const S* __restrict__ gv,
+                S* __restrict__ dq,
                 S* __restrict__ dv, S* __restrict__ dtau, S* __restrict__ q_out,
                 S* __restrict__ v_out, unsigned char* tape, int* status, int B, int cap, int e) {
   using V = Adj<S>;
@@ -1895,8 +1919,15 @@ HD void env_vjp(const DescI& I, const DescF<S>& F, const S* __restrict__ q_in,
   Front<V, S> f;
   FrontWork<V> fw;
   env_front<V, S>(I, F, q, v, tau, f, fw);
-  S best[MAX_D];
-  const S best_res = f.lcp.D > 0 ? lcp_solve<V, S>(I, f, best) : S(0);
+  const int D = f.lcp.D;
+  S best[MAX_D], best_res = S(0);
+  if (D > 0 && sol != nullptr) {
+    const S* __restrict__ row = sol + (int64_t)e * (D + 1);
+    for (int i = 0; i < D; ++i) best[i] = row[i];
+    best_res = row[D];
+  } else if (D > 0) {
+    best_res = lcp_solve<V, S>(I, f, best);
+  }
   env_back<V, S, true>(I, F, q, f, best, best_res, qn, vn);
   const int count = t.n;
   note_count(status, count, tape != nullptr && count > cap);
@@ -1926,21 +1957,23 @@ template <typename S>
 __global__ void __launch_bounds__(WARP) fused_step_kernel(
     const DescI* __restrict__ di, const DescF<S>* __restrict__ df, const S* __restrict__ q,
     const S* __restrict__ v, const S* __restrict__ tau, S* __restrict__ qo, S* __restrict__ vo,
-    int B, int env_bytes, int front_only) {
+    S* __restrict__ sol, int B, int env_bytes, int front_only) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (env_smem_bytes<S>(di->D, di->nv) > env_bytes) __trap();  // the launcher sized another model
-  env_fwd<S>(*di, *df, q, v, tau, qo, vo, B, blockIdx.x, smem, front_only != 0);
+  env_fwd<S>(*di, *df, q, v, tau, qo, vo, sol, B, blockIdx.x, smem, front_only != 0);
 }
 
 template <typename S>
 __global__ void __launch_bounds__(32) fused_step_vjp_kernel(
     const DescI* __restrict__ di, const DescF<S>* __restrict__ df, const S* __restrict__ q,
-    const S* __restrict__ v, const S* __restrict__ tau, const S* __restrict__ gq,
-    const S* __restrict__ gv, S* __restrict__ dq, S* __restrict__ dv, S* __restrict__ dtau,
-    S* __restrict__ qo, S* __restrict__ vo, unsigned char* tape, int* status, int B, int cap) {
+    const S* __restrict__ v, const S* __restrict__ tau, const S* __restrict__ sol,
+    const S* __restrict__ gq, const S* __restrict__ gv, S* __restrict__ dq, S* __restrict__ dv,
+    S* __restrict__ dtau, S* __restrict__ qo, S* __restrict__ vo, unsigned char* tape,
+    int* status, int B, int cap, int sol_w) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
-  env_vjp<S>(*di, *df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status, B, cap, e);
+  if (sol != nullptr && sol_w != di->D + 1) __trap();  // rows of another width than D + 1
+  env_vjp<S>(*di, *df, q, v, tau, sol, gq, gv, dq, dv, dtau, qo, vo, tape, status, B, cap, e);
 }
 
 // the current device's opt-in shared memory per block, in bytes
@@ -1967,14 +2000,15 @@ static int block_smem(int D, int nv, int* smem) {
 
 template <typename S>
 static int launch(const void* di, const void* df, const void* q, const void* v, const void* tau,
-                  void* qo, void* vo, int B, int D, int nv, int front_only, void* stream) {
+                  void* qo, void* vo, void* sol, int B, int D, int nv, int front_only,
+                  void* stream) {
   if (B <= 0) return 0;
   int smem = 0;
   const int err = block_smem<S>(D, nv, &smem);
   if (err) return err;
   fused_step_kernel<S><<<B, WARP, smem, (cudaStream_t)stream>>>(
       (const DescI*)di, (const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau, (S*)qo,
-      (S*)vo, B, smem, front_only);
+      (S*)vo, (S*)sol, B, smem, front_only);
   return (int)cudaGetLastError();
 }
 
@@ -1991,14 +2025,14 @@ static int occupancy(int D, int nv, int* warps) {
 
 template <typename S>
 static int launch_vjp(const void* di, const void* df, const void* q, const void* v,
-                      const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                      void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
-                      void* stream) {
+                      const void* tau, const void* sol, const void* gq, const void* gv, void* dq,
+                      void* dv, void* dtau, void* qo, void* vo, void* tape, void* status, int B,
+                      int cap, int sol_w, void* stream) {
   if (B <= 0) return 0;
   fused_step_vjp_kernel<S><<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
       (const DescI*)di, (const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau,
-      (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo, (S*)vo,
-      (unsigned char*)tape, (int*)status, B, cap);
+      (const S*)sol, (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo, (S*)vo,
+      (unsigned char*)tape, (int*)status, B, cap, sol_w);
   return (int)cudaGetLastError();
 }
 #else
@@ -2009,27 +2043,28 @@ static int launch_vjp(const void* di, const void* df, const void* q, const void*
 // no lane wrote poisons the result. D and nv must be the descriptor's.
 template <typename S>
 static int launch(const void* di, const void* df, const void* q, const void* v, const void* tau,
-                  void* qo, void* vo, int B, int D, int nv, int front_only, void*) {
+                  void* qo, void* vo, void* sol, int B, int D, int nv, int front_only, void*) {
   const DescI& I = *(const DescI*)di;
   if (D != I.D || nv != I.nv) return 1;
   std::vector<unsigned char> sh(env_smem_bytes<S>(D, nv));
   for (int e = 0; e < B; ++e) {
     std::fill(sh.begin(), sh.end(), (unsigned char)0xff);
     env_fwd<S>(I, *(const DescF<S>*)df, (const S*)q, (const S*)v, (const S*)tau, (S*)qo, (S*)vo,
-               B, e, sh.data(), front_only != 0);
+               (S*)sol, B, e, sh.data(), front_only != 0);
   }
   return 0;
 }
 
 template <typename S>
 static int launch_vjp(const void* di, const void* df, const void* q, const void* v,
-                      const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                      void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
-                      void*) {
+                      const void* tau, const void* sol, const void* gq, const void* gv, void* dq,
+                      void* dv, void* dtau, void* qo, void* vo, void* tape, void* status, int B,
+                      int cap, int sol_w, void*) {
+  if (sol != nullptr && sol_w != ((const DescI*)di)->D + 1) return 1;
   for (int e = 0; e < B; ++e)
     env_vjp<S>(*(const DescI*)di, *(const DescF<S>*)df, (const S*)q, (const S*)v,
-               (const S*)tau, (const S*)gq, (const S*)gv, (S*)dq, (S*)dv, (S*)dtau, (S*)qo,
-               (S*)vo, (unsigned char*)tape, (int*)status, B, cap, e);
+               (const S*)tau, (const S*)sol, (const S*)gq, (const S*)gv, (S*)dq, (S*)dv,
+               (S*)dtau, (S*)qo, (S*)vo, (unsigned char*)tape, (int*)status, B, cap, e);
   return 0;
 }
 #endif
@@ -2068,19 +2103,22 @@ void fused_step_layout(int* out) {
 }
 
 // (q', v') = step(q, v, tau), one warp per env; D and nv are the
-// descriptor's (they size the shared memory). front_only != 0: stop after
-// the front end and write v* to vo (q' is not written). Returns a CUDA
-// error code (0 = launched), the refusal of the shared memory included.
+// descriptor's (they size the shared memory). sol may be null; when given
+// (B * (D + 1) values) it receives each env's detached LCP solution, `best`
+// then `best_res` (nothing when D = 0), for the VJP. front_only != 0: stop
+// after the front end and write v* to vo (q' and sol are not written).
+// Returns a CUDA error code (0 = launched), the refusal of the shared
+// memory included.
 int fused_step_f32(const void* di, const void* df, const void* q, const void* v,
-                   const void* tau, void* qo, void* vo, int B, int D, int nv, int front_only,
-                   void* stream) {
-  return fused::launch<float>(di, df, q, v, tau, qo, vo, B, D, nv, front_only, stream);
+                   const void* tau, void* qo, void* vo, void* sol, int B, int D, int nv,
+                   int front_only, void* stream) {
+  return fused::launch<float>(di, df, q, v, tau, qo, vo, sol, B, D, nv, front_only, stream);
 }
 
 int fused_step_f64(const void* di, const void* df, const void* q, const void* v,
-                   const void* tau, void* qo, void* vo, int B, int D, int nv, int front_only,
-                   void* stream) {
-  return fused::launch<double>(di, df, q, v, tau, qo, vo, B, D, nv, front_only, stream);
+                   const void* tau, void* qo, void* vo, void* sol, int B, int D, int nv,
+                   int front_only, void* stream) {
+  return fused::launch<double>(di, df, q, v, tau, qo, vo, sol, B, D, nv, front_only, stream);
 }
 
 // kernel 1's footprint for a model of D rows and nv dofs in values of
@@ -2100,6 +2138,9 @@ int fused_step_occupancy(int elem_bytes, int D, int nv, int* out) {
 #endif
 
 // (dq, dv, dtau) = (gq, gv) . d(q', v')/d(q, v, tau), one thread per env.
+// sol: the step's detached LCP solution as fused_step_f32/f64 wrote it
+// (B rows of sol_w = D + 1 values; another width traps on the card and
+// returns 1 on the host), or null: the VJP then solves the LCP itself.
 // tape: cap * B * (sizeof(Node<S>) + sizeof(S)) bytes of device memory (null:
 // count only, nothing else written); status: two zeroed ints, [the largest
 // node count of any env, 1 if an env needed more than cap]. qo and vo may be
@@ -2107,21 +2148,21 @@ int fused_step_occupancy(int elem_bytes, int D, int nv, int* out) {
 // the tape only, and write no gradient.
 #if PART(1)
 int fused_step_vjp_f32(const void* di, const void* df, const void* q, const void* v,
-                       const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                       void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
-                       void* stream) {
-  return fused::launch_vjp<float>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status,
-                                  B, cap, stream);
+                       const void* tau, const void* sol, const void* gq, const void* gv,
+                       void* dq, void* dv, void* dtau, void* qo, void* vo, void* tape,
+                       void* status, int B, int cap, int sol_w, void* stream) {
+  return fused::launch_vjp<float>(di, df, q, v, tau, sol, gq, gv, dq, dv, dtau, qo, vo, tape,
+                                  status, B, cap, sol_w, stream);
 }
 #endif
 
 #if PART(2)
 int fused_step_vjp_f64(const void* di, const void* df, const void* q, const void* v,
-                       const void* tau, const void* gq, const void* gv, void* dq, void* dv,
-                       void* dtau, void* qo, void* vo, void* tape, void* status, int B, int cap,
-                       void* stream) {
-  return fused::launch_vjp<double>(di, df, q, v, tau, gq, gv, dq, dv, dtau, qo, vo, tape, status,
-                                   B, cap, stream);
+                       const void* tau, const void* sol, const void* gq, const void* gv,
+                       void* dq, void* dv, void* dtau, void* qo, void* vo, void* tape,
+                       void* status, int B, int cap, int sol_w, void* stream) {
+  return fused::launch_vjp<double>(di, df, q, v, tau, sol, gq, gv, dq, dv, dtau, qo, vo, tape,
+                                   status, B, cap, sol_w, stream);
 }
 #endif
 

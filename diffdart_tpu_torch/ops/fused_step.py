@@ -10,8 +10,9 @@ Counterpart of diffdart_tpu/ops/pallas_step.py. The TPU lays envs out as
 Gradients: on CUDA, a call with grad enabled and an input that requires
 grad goes through FusedStepFn, whose backward is the VJP kernel (port of
 `_bwd_kernel`, in the same .cu: reverse mode on a tape that each env's
-thread records, sized once per model and dtype by a counting launch); on
-the CPU autograd runs through the plain version. The kernels cover the
+thread records, sized once per model and dtype by a counting launch, at
+the detached LCP solution that the forward's launch saved); on the CPU
+autograd runs through the plain version. The kernels cover the
 plain version's subset (REVOLUTE / PRISMATIC / PLANAR / WELD / FREE / BALL
 joints; capsule / sphere / box / convex-hull vs fixed-plane contacts, a
 hull's 4 deepest vertices as its slots; joint-limit, servo and
@@ -183,11 +184,11 @@ def _load(kind: str) -> ctypes.CDLL:
     lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_step_layout.restype = None
     for name in ("fused_step_f32", "fused_step_f64"):
-        _build.declare(getattr(lib, name), 7, 4)
+        _build.declare(getattr(lib, name), 8, 4)
     lib.fused_step_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.fused_step_occupancy.restype = ctypes.c_int
     for name in ("fused_step_vjp_f32", "fused_step_vjp_f64"):
-        _build.declare(getattr(lib, name), 14, 2)
+        _build.declare(getattr(lib, name), 15, 3)
     want = [sum(n for _, n in _I_LAYOUT), sum(n for _, n in _F_LAYOUT), sum(n for _, n in _F_LAYOUT),
             MAX_NB, MAX_NQ, MAX_NV, MAX_PAIRS, MAX_NC, MAX_LIM, MAX_D,
             NODE_BYTES[torch.float32], NODE_BYTES[torch.float64], MAX_HULL_VERTS]
@@ -226,21 +227,26 @@ class _FusedStepKernel:
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, desc_i, desc_f, q, v, tau, D):
-        """D: the descriptor's LCP rows (they size the shared memory)."""
+    def __call__(self, desc_i, desc_f, q, v, tau, D, solution=False):
+        """D: the descriptor's LCP rows (they size the shared memory).
+        (q', v'), or with solution=True (q', v', sol): sol, (B, D + 1), holds
+        each env's detached LCP solution (`best`, then its residual), which
+        the VJP kernel takes instead of solving again."""
         lib = _load("cuda")
         fn = lib.fused_step_f32 if q.dtype == torch.float32 else lib.fused_step_f64
         qo = torch.empty_like(q)
         vo = torch.empty_like(v)
         B = q.shape[1]
+        sol = torch.empty((B, D + 1), dtype=q.dtype, device=q.device) if solution else None
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(desc_i.data_ptr(), desc_f.data_ptr(), q.data_ptr(), v.data_ptr(),
-                     tau.data_ptr(), qo.data_ptr(), vo.data_ptr(), B, D, v.shape[0], 0, stream)
+                     tau.data_ptr(), qo.data_ptr(), vo.data_ptr(), _ptr(sol), B, D, v.shape[0], 0,
+                     stream)
         if err:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
         self.launches += 1
-        return qo, vo
+        return (qo, vo, sol) if solution else (qo, vo)
 
 
 def tape_bytes(dtype, cap: int, B: int) -> int:
@@ -294,19 +300,24 @@ class TapeStatus:
 class _FusedStepVjpKernel:
     """Wrapper of the VJP kernel: (dq, dv, dtau) = (gq, gv) . d(q', v') /
     d(q, v, tau), one thread per env, each recording its step on a tape of
-    `cap` nodes (tape_capacity) and sweeping it in reverse. With
-    primal=True it also returns the step (q', v') that the recording
-    computed. `status`, a zeroed (2,) int32 tensor that several launches may
-    share, receives the overflow status, which the caller then checks
-    (check_tape); without it the call checks its own, which waits for the
-    launch. `launches` counts launches that record and sweep, and nothing
-    else; `count_launches` the launches that only count nodes (tape_nodes,
-    once per model and dtype)."""
+    `cap` nodes (tape_capacity) and sweeping it in reverse. `solution` is
+    the step's detached LCP solution as kernel 1 saved it (_FusedStepKernel
+    with solution=True), (B, D + 1) for the descriptor's D (rows of another
+    width stop the kernel: a trap, which the next synchronisation raises);
+    without it the kernel solves the LCP itself, bit for bit the same. With primal=True it also returns the step (q', v')
+    that the recording computed. `status`, a zeroed (2,) int32 tensor that
+    several launches may share, receives the overflow status, which the
+    caller then checks (check_tape); without it the call checks its own,
+    which waits for the launch. `launches` counts launches that record and
+    sweep, and nothing else; `self_solved` those of them that got no
+    solution; `count_launches` the launches that only count nodes
+    (tape_nodes, once per model and dtype)."""
 
     name = "fused_step_vjp"
 
     def __init__(self):
         self.launches = 0
+        self.self_solved = 0
         self.count_launches = 0
 
     @staticmethod
@@ -321,18 +332,25 @@ class _FusedStepVjpKernel:
         status = torch.zeros(2, dtype=torch.int32, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = self._fn(q.dtype)(*(_ptr(x) for x in (desc_i, desc_f, *one)), *([None] * 8),
-                                    status.data_ptr(), 1, 0, stream)
+            err = self._fn(q.dtype)(*(_ptr(x) for x in (desc_i, desc_f, *one)), *([None] * 9),
+                                    status.data_ptr(), 1, 0, 0, stream)
         if err:
             raise RuntimeError(f"fused_step_vjp counting launch failed: CUDA error {err}")
         self.count_launches += 1
         return int(status[0].item())
 
-    def __call__(self, desc_i, desc_f, q, v, tau, gq, gv, cap, primal=False, status=None):
+    def __call__(self, desc_i, desc_f, q, v, tau, gq, gv, cap, primal=False, status=None,
+                 solution=None):
         for g, x, name in ((gq, q, "gq"), (gv, v, "gv")):
             if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
                 raise ValueError(f"fused_step_vjp: {name} must be a contiguous {x.dtype} tensor of "
                                  f"shape {tuple(x.shape)} on {x.device}")
+        if solution is not None and (solution.dim() != 2 or solution.shape[0] != q.shape[1]
+                                     or solution.dtype != q.dtype or solution.device != q.device
+                                     or not solution.is_contiguous()):
+            raise ValueError(f"fused_step_vjp: solution must be a contiguous {q.dtype} tensor of "
+                             f"shape ({q.shape[1]}, D + 1) on {q.device}")
+        sol_w = 0 if solution is None else solution.shape[1]  # the kernel holds it to D + 1
         fn = self._fn(q.dtype)
         dq, dv, dtau = torch.empty_like(q), torch.empty_like(v), torch.empty_like(tau)
         qo, vo = (torch.empty_like(q), torch.empty_like(v)) if primal else (None, None)
@@ -343,11 +361,12 @@ class _FusedStepVjpKernel:
             status = torch.zeros(2, dtype=torch.int32, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = fn(*(_ptr(x) for x in (desc_i, desc_f, q, v, tau, gq, gv, dq, dv, dtau, qo, vo,
-                                         tape, status)), B, cap, stream)
+            err = fn(*(_ptr(x) for x in (desc_i, desc_f, q, v, tau, solution, gq, gv, dq, dv, dtau,
+                                         qo, vo, tape, status)), B, cap, sol_w, stream)
         if err:
             raise RuntimeError(f"fused_step_vjp kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.self_solved += solution is None
         if own:
             check_tape(status, cap)
         return (dq, dv, dtau, qo, vo) if primal else (dq, dv, dtau)
@@ -360,22 +379,27 @@ VJP_KERNEL = _FusedStepVjpKernel()
 class FusedStepFn(torch.autograd.Function):
     """(q', v') = step(q, v, tau) with the step's VJP as its backward, the
     counterpart of the JAX package's custom_vjp (ops/pallas_step.py:101-114):
-    the forward launches the step and saves (q, v, tau); the backward
-    launches the VJP, which recomputes the step. `launch(q, v, tau)` and
-    `launch_vjp(q, v, tau, gq, gv)` are the two launchers (FusedStep passes
-    the CUDA kernels)."""
+    the forward launches the step, which also writes the detached LCP
+    solution (`best` and its residual, D + 1 values per env), and saves it
+    beside (q, v, tau); the backward launches the VJP, which records the
+    step at that solution and sweeps the tape, without solving the LCP
+    again (`VJP_KERNEL.self_solved` counts launches that did solve).
+    `launch(q, v, tau) -> (q', v', solution)` and
+    `launch_vjp(q, v, tau, solution, gq, gv)` are the two launchers
+    (FusedStep passes the CUDA kernels)."""
 
     @staticmethod
     def forward(ctx, launch, launch_vjp, q, v, tau):
         ctx.launch_vjp = launch_vjp
-        ctx.save_for_backward(q, v, tau)
-        return launch(q, v, tau)
+        q_new, v_new, solution = launch(q, v, tau)
+        ctx.save_for_backward(q, v, tau, solution)
+        return q_new, v_new
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gq, gv):
-        q, v, tau = ctx.saved_tensors
-        return (None, None, *ctx.launch_vjp(q, v, tau, gq.contiguous(), gv.contiguous()))
+        q, v, tau, solution = ctx.saved_tensors
+        return (None, None, *ctx.launch_vjp(q, v, tau, solution, gq.contiguous(), gv.contiguous()))
 
 
 class FusedStep:
@@ -404,8 +428,8 @@ class FusedStep:
                                torch.as_tensor(df, dtype=dtype, device=device))
         return self._desc[key]
 
-    def _launch(self, q, v, tau):
-        return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, self.D)
+    def _launch(self, q, v, tau, solution=False):
+        return KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, self.D, solution=solution)
 
     def tape_capacity(self, q, v, tau):
         """The VJP kernel's tape capacity for this model in q's dtype, from
@@ -415,10 +439,10 @@ class FusedStep:
             self._tape[q.dtype] = tape_capacity(nodes)
         return self._tape[q.dtype]
 
-    def _launch_vjp(self, q, v, tau, gq, gv, status: TapeStatus, check: bool):
+    def _launch_vjp(self, q, v, tau, solution, gq, gv, status: TapeStatus, check: bool):
         cap = self.tape_capacity(q, v, tau)
         out = VJP_KERNEL(*self.descriptor(q.device, q.dtype), q, v, tau, gq, gv, cap,
-                         status=status.take(q.device, cap))
+                         status=status.take(q.device, cap), solution=solution)
         if check:
             status.check()
         return out
@@ -446,7 +470,7 @@ class FusedStep:
             if status is None:
                 status, check = TapeStatus(), True
             vjp = functools.partial(self._launch_vjp, status=status, check=check)
-            return FusedStepFn.apply(self._launch, vjp, q, v, tau)
+            return FusedStepFn.apply(functools.partial(self._launch, solution=True), vjp, q, v, tau)
         return self._launch(q, v, tau)
 
 
@@ -481,12 +505,15 @@ def build_fused_step(model: Model) -> FusedStep:
     return step
 
 
-def host_kernel_step(model: Model, q, v, tau, dtype=torch.float64, front_only=False):
+def host_kernel_step(model: Model, q, v, tau, dtype=torch.float64, front_only=False,
+                     solution=False):
     """The step kernel's per-env code compiled for the host CPU (ops/_build.py,
     kind='host'), its warp's 32 lanes run in turn, on SoA tensors of
-    `dtype`: (q', v'). front_only: the launch that stops after the front end,
-    which returns (None, v*). Checks the kernel's arithmetic and its lane
-    partition where there is no GPU. Not on any execution path."""
+    `dtype`: (q', v'), and with solution=True (q', v', sol), sol the (B, D + 1)
+    detached LCP solution that host_kernel_vjp takes. front_only: the launch
+    that stops after the front end, which returns (None, v*). Checks the
+    kernel's arithmetic and its lane partition where there is no GPU. Not on
+    any execution path."""
     lib = _load("host")
     fn = lib.fused_step_f32 if dtype == torch.float32 else lib.fused_step_f64
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -494,18 +521,25 @@ def host_kernel_step(model: Model, q, v, tau, dtype=torch.float64, front_only=Fa
     df = df.astype(np_dtype)
     q, v, tau = (np.ascontiguousarray(x.detach().cpu().numpy(), np_dtype) for x in (q, v, tau))
     qo, vo = np.empty_like(q), np.empty_like(v)
+    D = int(di[8])
+    sol = np.full((q.shape[1], D + 1), np.nan, np_dtype) if solution else None
     ptr = [a.ctypes.data for a in (di, df, q, v, tau, qo, vo)]
-    err = fn(*ptr, q.shape[1], int(di[8]), model.nv, int(front_only), None)
+    err = fn(*ptr, None if sol is None else sol.ctypes.data, q.shape[1], D, model.nv,
+             int(front_only), None)
     if err:
         raise RuntimeError(f"host fused_step failed: {err}")
-    return None if front_only else torch.from_numpy(qo), torch.from_numpy(vo)
+    out = (None if front_only else torch.from_numpy(qo), torch.from_numpy(vo))
+    return (*out, torch.from_numpy(sol)) if solution else out
 
 
-def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float64):
+def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float64,
+                    solution=None):
     """The VJP kernel's per-env code compiled for the host CPU, on SoA
     tensors of `dtype`: ((dq, dv, dtau), (q', v'), nodes), where (q', v') is
     the primal step of the recording and `nodes` the node count of the first
-    env (a counting call). `cap` is the tape capacity in nodes (default:
+    env (a counting call). `solution`: the (B, D + 1) detached LCP solution
+    of host_kernel_step(..., solution=True); without it the VJP solves the
+    LCP itself. `cap` is the tape capacity in nodes (default:
     tape_capacity(nodes)); an env that needs more raises. Not on any
     execution path."""
     lib = _load("host")
@@ -518,7 +552,8 @@ def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float
     B = q.shape[1]
     status = np.zeros(2, np.int32)
     one = [np.ascontiguousarray(x[:, :1]) for x in (q, v, tau)]
-    err = fn(*(a.ctypes.data for a in (di, df, *one)), *([None] * 8), status.ctypes.data, 1, 0, None)
+    err = fn(*(a.ctypes.data for a in (di, df, *one)), *([None] * 9), status.ctypes.data, 1, 0, 0,
+             None)
     if err:
         raise RuntimeError(f"host fused_step_vjp counting call failed: {err}")
     nodes = int(status[0])
@@ -526,8 +561,12 @@ def host_kernel_vjp(model: Model, q, v, tau, gq, gv, cap=None, dtype=torch.float
     tape = np.empty(tape_bytes(dtype, cap, B), np.uint8)
     status[:] = 0
     outs = [np.empty_like(x) for x in (q, v, tau, q, v)]
-    ptr = [a.ctypes.data for a in (di, df, q, v, tau, gq, gv, *outs, tape, status)]
-    err = fn(*ptr, B, cap, None)
+    sol = None if solution is None else np.ascontiguousarray(solution.detach().cpu().numpy(), np_dtype)
+    if sol is not None and (sol.ndim != 2 or sol.shape[0] != B):
+        raise ValueError(f"host fused_step_vjp: solution must be ({B}, D + 1), got {sol.shape}")
+    ptr = [a.ctypes.data for a in (di, df, q, v, tau)] + [None if sol is None else sol.ctypes.data]
+    ptr += [a.ctypes.data for a in (gq, gv, *outs, tape, status)]
+    err = fn(*ptr, B, cap, 0 if sol is None else sol.shape[1], None)
     if err:
         raise RuntimeError(f"host fused_step_vjp failed: {err}")
     if status[1]:

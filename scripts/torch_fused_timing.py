@@ -15,9 +15,11 @@ tree's launcher has them, and both again at fewer warps per SM (launches
 that reserve the shared memory of a larger D and nv than the model's, so
 that fewer envs fit on an SM: the same work at a lower occupancy); the VJP
 kernel's bare-launcher time, whole, its
-recording without the sweep and its counting launch; the forward rollout
-(3 runs) and the BPTT (loss + backward, median of 5) with their
-env-steps/s.
+recording without the sweep and its counting launch, as the BPTT launches
+it (at the step kernel's saved LCP solution where the tree has one; the
+same three solving the LCP themselves beside them, `_solving`); the
+forward rollout (3 runs) and the BPTT (loss + backward, median of 5) with
+their env-steps/s.
 """
 import argparse
 import json
@@ -30,6 +32,23 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T = 4096, 50
+
+
+class UnsavedSolutionLaunchers:
+    """The float32 launchers of a tree whose VJP solves the LCP itself (no
+    VJP_KERNEL.self_solved): they take this tree's arguments less the step's
+    solution pointer and the VJP's pointer and row width, null here."""
+
+    def __init__(self, lib):
+        def fused_step_f32(*a):
+            assert a[7] is None
+            return lib.fused_step_f32(*a[:7], *a[8:])
+
+        def fused_step_vjp_f32(*a):
+            assert a[5] is None
+            return lib.fused_step_vjp_f32(*a[:5], *a[6:-2], a[-1])
+
+        self.fused_step_f32, self.fused_step_vjp_f32 = fused_step_f32, fused_step_vjp_f32
 
 
 def main():
@@ -53,6 +72,9 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     lib = fs._load("cuda")
     ptx = ptxas_lines(lib)
+    saves_solution = hasattr(fs.VJP_KERNEL, "self_solved")
+    if hasattr(fs, "occupancy") and not saves_solution:
+        lib = UnsavedSolutionLaunchers(lib)
     m = half_cheetah(dt=2e-3, dtype=torch.float32, device="cuda")
     step = fs.build_fused_step(m)
     taus = torch.tensor(0.1 * np.random.RandomState(1).randn(T, B, m.nv), dtype=torch.float32,
@@ -84,8 +106,15 @@ def main():
         out["rollout_ms"] = cuda_ms(lambda: rollout_fast(m, state, taus), reps=3)
     cap = step.tape_capacity(qs, vs, ts)
     g = (torch.ones_like(qs), torch.ones_like(vs))
+    saved = None
+    if saves_solution:
+        with torch.no_grad():
+            saved = step_device_ms(lib, desc, step.D, qs, vs, ts, reps=1, solution=True)[2][2]
     for part in ("whole", "record", "count"):
-        out[f"vjp_{part}_ms"] = vjp_device_ms(lib, desc, qs, vs, ts, *g, cap, part=part)[0]
+        out[f"vjp_{part}_ms"] = vjp_device_ms(lib, desc, qs, vs, ts, *g, cap, part=part,
+                                              solution=saved)[0]
+        if saved is not None:
+            out[f"vjp_{part}_solving_ms"] = vjp_device_ms(lib, desc, qs, vs, ts, *g, cap, part=part)[0]
 
     def bptt():
         taus_g = taus.clone().requires_grad_(True)

@@ -15,7 +15,10 @@ times each array's largest magnitude on >= 99% of envs; float32 against
 reverse-mode autograd of the plain float32 step, the kernel's own mode, at
 a median env error of at most 1e-4 and >= 90% of envs within 1e-2. A tape
 one node short raises, for one launch and, once per backward pass, for a
-rollout. rollout_fast on a model over the fused kernel's
+rollout. A BPTT's VJP launches take the LCP solution that each step's
+forward launch saved (none solves again), and its gradient equals, bit for
+bit, a chain of VJP launches that solve the LCP themselves. rollout_fast on
+a model over the fused kernel's
 caps (a 17-body chain) warns and runs the vmap stack. The step kernel (one
 warp per env) equals the VJP recording's primal bit for bit, and its C
 launcher refuses a block over the card's shared memory.
@@ -197,8 +200,8 @@ def test_kernel_launcher_and_front_only(dtype):
 
     def launch(D, front_only=0):
         qo, vo = torch.full_like(q, 7.0), torch.empty_like(v)
-        err = fn(*(x.data_ptr() for x in (*step.descriptor(q.device, dtype), q, v, tau, qo, vo)), B,
-                 D, m.nv, front_only, torch.cuda.current_stream().cuda_stream)
+        err = fn(*(x.data_ptr() for x in (*step.descriptor(q.device, dtype), q, v, tau, qo, vo)),
+                 None, B, D, m.nv, front_only, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         return err, qo, vo
 
@@ -365,18 +368,56 @@ def test_rollout_tiled_raises_where_the_kernel_cannot_run():
 @pytest.mark.cuda
 def test_bptt_launch_count():
     """rollout_fast with taus that require grad, B = 1000, T = 3, then
-    backward: 3 launches of each kernel, a finite non-zero gradient."""
+    backward: 3 launches of each kernel, every VJP launch at the forward's
+    saved LCP solution (none solves again), a finite non-zero gradient."""
     _cuda()
     m = half_cheetah(dtype=torch.float32, device="cuda")
     B, T = 1000, 3
     state = State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
     taus = (0.1 * torch.randn(T, B, m.nv, device="cuda")).requires_grad_(True)
-    n0, g0 = fs.KERNEL.launches, fs.VJP_KERNEL.launches
+    n0, g0, s0 = fs.KERNEL.launches, fs.VJP_KERNEL.launches, fs.VJP_KERNEL.self_solved
     out = rollout_fast(m, state, taus)
     ((out.q[:, 1] ** 2).mean() + 1e-4 * (taus**2).mean()).backward()
     torch.cuda.synchronize()
     assert fs.KERNEL.launches == n0 + T and fs.VJP_KERNEL.launches == g0 + T
+    assert fs.VJP_KERNEL.self_solved == s0
     assert torch.isfinite(taus.grad).all() and taus.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_bptt_gradient_equals_self_solved_vjp_chain():
+    """rollout_fast's BPTT (each VJP launch at the LCP solution that kernel
+    1's warp saved) against a chain of VJP_KERNEL calls that solve the LCP
+    themselves (the serial solve), half-cheetah, float32, B = 1000, T = 3:
+    d mean(q_T[:, 1]^2) / dtau equal bit for bit."""
+    _cuda()
+    m = half_cheetah(dtype=torch.float32, device="cuda")
+    B, T = 1000, 3
+    state = State(q=cheetah_init_q(m).repeat(B, 1), v=torch.zeros(B, m.nv, device="cuda"))
+    taus = (0.1 * torch.randn(T, B, m.nv, device="cuda", generator=torch.Generator("cuda").manual_seed(7)))
+    x = taus.clone().requires_grad_(True)
+    (rollout_fast(m, state, x).q[:, 1] ** 2).mean().backward()
+    step = fs.build_fused_step(m)
+    desc = step.descriptor(state.q.device, torch.float32)
+    qs, vs, ts = [fs.to_soa(state.q)], [fs.to_soa(state.v)], [fs.to_soa(taus[t]) for t in range(T)]
+    with torch.no_grad():
+        for t in range(T):
+            q1, v1 = step(qs[-1], vs[-1], ts[t])
+            qs.append(q1)
+            vs.append(v1)
+    qT = qs[-1].T.clone().requires_grad_(True)
+    (gq,) = torch.autograd.grad((qT[:, 1] ** 2).mean(), qT)
+    gq, gv = fs.to_soa(gq), torch.zeros_like(vs[-1])
+    cap = step.tape_capacity(qs[0], vs[0], ts[0])
+    s0 = fs.VJP_KERNEL.self_solved
+    want = torch.empty_like(taus)
+    for t in reversed(range(T)):
+        gq, gv, dtau = fs.VJP_KERNEL(*desc, qs[t], vs[t], ts[t], gq, gv, cap)
+        want[t] = dtau.T
+    torch.cuda.synchronize()
+    assert fs.VJP_KERNEL.self_solved == s0 + T
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    assert torch.equal(x.grad, want)
 
 
 @pytest.mark.cuda

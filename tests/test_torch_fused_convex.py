@@ -19,8 +19,9 @@ whose hull has 6 vertices, on a plane; 4 slots, D = 12 LCP rows, B = 64.
   by far more than the tolerance, so the check is sharp.
 * The VJP kernel's host build against torch.autograd.grad through the plain
   version at ops/vjp_check.py's limits, at random and at tie states; its
-  recorded primal equals kernel 1's output bit for bit; every env records
-  the same number of nodes.
+  recorded primal equals kernel 1's output bit for bit; at kernel 1's saved
+  LCP solution it equals the VJP that solves the LCP itself, bit for bit;
+  every env records the same number of nodes.
 * The kernel's vertex pool cap: a model over it is refused with a reason
   that names the cap.
 * The kernel multiplies a hull vertex by the full rotation where the plain
@@ -155,6 +156,23 @@ def test_host_vjp_matches_plain_autograd(octa, states):
     assert all(torch.isfinite(x).all() for x in got)
     assert envs_within(got, want) >= VJP_SHARE
     qk, vk = host_kernel_step(octa, q, v, tau)
+    assert torch.equal(qo, qk) and torch.equal(vo, vk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("states", [batch, tie_batch])
+def test_host_vjp_at_saved_solution_equals_self_solved(octa, states, dtype):
+    """The VJP at kernel 1's saved LCP solution equals the VJP that solves
+    the LCP itself, bit for bit, at random and at tie states (where the
+    slots take other vertices in each env)."""
+    _needs_cxx()
+    q, v, tau = states(9)
+    rng = np.random.RandomState(10)
+    gq, gv = torch.tensor(rng.randn(7, B)), torch.tensor(rng.randn(6, B))
+    qk, vk, sol = host_kernel_step(octa, q, v, tau, dtype=dtype, solution=True)
+    got, (qo, vo), _ = host_kernel_vjp(octa, q, v, tau, gq, gv, dtype=dtype, solution=sol)
+    want = host_kernel_vjp(octa, q, v, tau, gq, gv, dtype=dtype)[0]
+    assert torch.isfinite(sol).all() and all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(qo, qk) and torch.equal(vo, vk)
 
 

@@ -17,8 +17,13 @@
   bit for bit, in float64 and float32, for every model of KERNEL_MODELS,
   which between them make the lanes wrap (D > 32) and leave lanes idle
   (D < 32); the launch that stops after the front end returns v*.
+* The VJP at the step kernel's saved LCP solution (the warp solve's `best`
+  and residual, which the CUDA path's forward writes for its backward)
+  equals the VJP that solves the LCP itself (the serial solve) bit for bit;
+  the VJP reads that buffer: one element changed moves its env's gradient.
 * FusedStepFn (the autograd.Function of the CUDA path) over a short BPTT
-  rollout, with the host builds as its launchers, against plain autograd.
+  rollout, with the host builds as its launchers (the solution passed from
+  the forward to the backward), against plain autograd.
 * rollout_fast on the CPU against a loop over the plain version; the cache
   of one FusedStep per model; its fallback reason on CUDA for a model over
   the kernel's caps.
@@ -120,6 +125,46 @@ def test_host_step_kernel_warp_equals_serial_solve(model, dtype, polish):
     _, (qo, vo), _ = host_kernel_vjp(m, q, v, tau, gq, gv, dtype=dtype)
     assert qk.dtype == dtype and torch.isfinite(qk).all() and torch.isfinite(vk).all()
     assert torch.equal(qk, qo) and torch.equal(vk, vo)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["worm", "half_cheetah", "octahedron"])
+def test_host_vjp_at_saved_solution_equals_self_solved(model, dtype):
+    """The VJP given kernel 1's saved LCP solution (its host build, the warp
+    solve) returns dq, dv, dtau and the primal bit for bit as the VJP that
+    solves the LCP itself (the serial solve), for every env; every element
+    of the solution was written. One element changed in the solution
+    changes that env's gradient: the VJP reads the buffer."""
+    _needs_cxx()
+    m, q0 = KERNEL_MODELS[model](torch.float64, "cpu")
+    q, v, tau, gq, gv = _vjp_inputs(m, q0, B=24, seed=16)
+    qk, vk, sol = host_kernel_step(m, q, v, tau, dtype=dtype, solution=True)
+    D = fs.build_fused_step(m).D
+    assert sol.shape == (24, D + 1) and sol.dtype == dtype and torch.isfinite(sol).all()
+    got, (qo, vo), n_got = host_kernel_vjp(m, q, v, tau, gq, gv, dtype=dtype, solution=sol)
+    want, _, n_want = host_kernel_vjp(m, q, v, tau, gq, gv, dtype=dtype)
+    assert n_got == n_want and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(qo, qk) and torch.equal(vo, vk)
+    e, i = divmod(int(sol[:, :D].abs().argmax()), D)  # the largest impulse: an active row
+    bad = sol.clone()
+    bad[e, i] = bad[e, i] * 1.5 + 0.1
+    moved = host_kernel_vjp(m, q, v, tau, gq, gv, dtype=dtype, solution=bad)[0]
+    assert any(not torch.equal(a[:, e], b[:, e]) for a, b in zip(moved, want))
+    others = [k for k in range(24) if k != e]
+    assert all(torch.equal(a[:, others], b[:, others]) for a, b in zip(moved, want))
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_host_vjp_refuses_a_solution_of_another_width(extra):
+    """The VJP holds the solution's rows to the descriptor's D + 1 values:
+    a row narrower or wider than kernel 1 writes is refused (the card's
+    build traps), never read past."""
+    _needs_cxx()
+    m = _worm()
+    q, v, tau, gq, gv = _vjp_inputs(m, WORM_Q0, B=4, seed=9)
+    other = torch.zeros(4, fs.build_fused_step(m).D + 1 + extra, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="host fused_step_vjp failed"):
+        host_kernel_vjp(m, q, v, tau, gq, gv, solution=other)
 
 
 def test_kernel_models_wrap_and_idle_the_lanes():
@@ -258,8 +303,9 @@ def test_record_only_launch_writes_no_gradient():
     dv, dtau = np.full_like(v, 7.0), np.full_like(tau, 7.0)
     qo, vo = np.empty_like(q), np.empty_like(v)
     err = fs._load("host").fused_step_vjp_f64(
-        *(a.ctypes.data for a in (di, df, q, v, tau, gq, gv)), None,
-        *(a.ctypes.data for a in (dv, dtau, qo, vo, tape, status)), 4, cap, None)
+        *(a.ctypes.data for a in (di, df, q, v, tau)), None,
+        *(a.ctypes.data for a in (gq, gv)), None,
+        *(a.ctypes.data for a in (dv, dtau, qo, vo, tape, status)), 4, cap, 0, None)
     assert err == 0 and status.tolist() == [nodes, 0]
     assert np.array_equal(qo, q1.numpy()) and np.array_equal(vo, v1.numpy())
     assert (dv == 7.0).all() and (dtau == 7.0).all()
@@ -291,7 +337,8 @@ def test_host_vjp_matches_pallas_bwd_kernel_interpret():
 
 def test_fused_step_fn_bptt_with_host_launchers():
     """FusedStepFn, the autograd.Function that the CUDA path runs, over a
-    3-step worm BPTT with the host builds of both kernels as its launchers:
+    3-step worm BPTT with the host builds of both kernels as its launchers,
+    the step's detached LCP solution passed from the forward to the VJP:
     the benchmark loss's gradient wrt the control tape against make_bench_fns'
     grad, which on CPU tensors is plain autograd."""
     _needs_cxx()
@@ -301,10 +348,10 @@ def test_fused_step_fn_bptt_with_host_launchers():
     taus = torch.tensor(0.3 * np.random.RandomState(5).randn(T, m.nv, B), requires_grad=True)
 
     def launch(q, v, tau):
-        return host_kernel_step(m, q, v, tau)
+        return host_kernel_step(m, q, v, tau, solution=True)
 
-    def launch_vjp(q, v, tau, gq, gv):
-        return host_kernel_vjp(m, q, v, tau, gq, gv)[0]
+    def launch_vjp(q, v, tau, solution, gq, gv):
+        return host_kernel_vjp(m, q, v, tau, gq, gv, solution=solution)[0]
 
     qc, vc = q, v
     for t in range(T):
